@@ -1,0 +1,166 @@
+"""End to end: the port's BeatTracker and CLI against the JAX package's.
+
+Same weights (carried across by state_dict_from_jax), same click track,
+HPSS separation, DBN decode. Tolerances: log-VQT 5e-4, pulses 1e-4, beat
+times the same count and each within one frame (16 ms): a random-init pulse
+can hold near-ties that one float32 rounding flips. On identical input the
+decoders must agree exactly.
+"""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from zeronotesamba_tpu.data.synthetic import click_track
+from zeronotesamba_tpu.decode import decode as j_decode
+from zeronotesamba_tpu.decode.dbn import decode_beats as j_decode_beats
+from zeronotesamba_tpu.infer import BeatTracker as JBeatTracker
+from zeronotesamba_torch import cli
+from zeronotesamba_torch.data import audio_io
+from zeronotesamba_torch.decode import decode
+from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, decode_beats
+from zeronotesamba_torch.infer import BeatTracker
+from zeronotesamba_torch.models.weights import state_dict_from_jax
+
+torch.set_num_threads(2)
+
+FRAME_S = 1.0 / 62.5
+LOG_FLOOR = -7.0  # log |X| at or below which a cell holds float32 rounding noise
+
+
+@pytest.fixture(scope="module")
+def jax_tracker():
+    return JBeatTracker()
+
+
+@pytest.fixture(scope="module")
+def tracker(jax_tracker):
+    return BeatTracker(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jax_tracker.params)), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def results(jax_tracker, tracker):
+    sig, _ = click_track(8.0, 120.0, seed=11)
+    ref = jax_tracker.track_signal(sig, separation="hpss", decoder="dbn")
+    out = tracker.track_signal(sig, separation="hpss", decoder="dbn")
+    return ref, out
+
+
+def _beats_close(a, b):
+    assert len(a) == len(b) > 0
+    assert np.abs(np.asarray(a) - np.asarray(b)).max() <= FRAME_S + 1e-9
+
+
+def test_track_signal_matches_jax(results):
+    ref, out = results
+    t = ref.fused_pulse.shape[0]
+    assert out.vqt.shape == ref.vqt.shape == (2, 96, t)
+    # A click track leaves the lowest octaves nearly empty: there |X| sits at
+    # float32 rounding level (log |X| <= -7), where both float32 paths are
+    # up to about 1e-2 from a float64 evaluation of the same transform
+    # (test_low_cells_sit_at_float32_rounding). Those cells are held at 1e-2,
+    # all others at 5e-4.
+    low = ref.vqt <= LOG_FLOOR
+    np.testing.assert_allclose(out.vqt[~low], ref.vqt[~low], atol=5e-4)
+    np.testing.assert_allclose(out.vqt[low], ref.vqt[low], atol=1e-2)
+    for name in ("anchor_pulse", "positive_pulse", "fused_pulse"):
+        assert getattr(out, name).shape == (t,)
+        np.testing.assert_allclose(getattr(out, name), getattr(ref, name), atol=1e-4, err_msg=name)
+    _beats_close(out.beat_times, ref.beat_times)
+
+
+def _log_xqt_f64(y: np.ndarray) -> np.ndarray:
+    """The port's plain multi-rate log-VQT evaluated in float64."""
+    import torch.nn.functional as F
+
+    from zeronotesamba_torch.ops import vqt as tv
+    from zeronotesamba_torch.ops.filterbank import XQTParams
+
+    p = XQTParams()
+    kern, dec = (torch.tensor(c, dtype=torch.float64) for c in tv._conv_constants(p))
+    n_frames, w, top = p.num_frames(y.shape[-1]), p.window_len, p.n_octaves - 1
+    pad = (w // 2 + 1) << top
+    x = tv._reflect_pad_last(torch.tensor(y, dtype=torch.float64)[:, None], pad)
+    octaves = []
+    for j in range(top, -1, -1):
+        hop, offset = p.hop >> (top - j), (pad >> (top - j)) - w // 2
+        resp = F.conv1d(x[:, :, offset: offset + (n_frames - 1) * hop + w], kern[j], stride=hop)
+        octaves.append(torch.sqrt(resp[:, :12] ** 2 + resp[:, 12:] ** 2 + 1e-30))
+        if j > 0:
+            x = tv._decimate2(x, dec)
+    return torch.log(torch.cat(octaves[::-1], dim=1) + p.log_eps).numpy()
+
+
+def test_low_cells_sit_at_float32_rounding():
+    """Why test_track_signal_matches_jax holds cells at log |X| <= -7 at 1e-2:
+    there both float32 paths, JAX's and the port's, are about that far from a
+    float64 evaluation of the same transform; elsewhere both are within 5e-4."""
+    from zeronotesamba_tpu.ops.vqt import log_xqt as j_log_xqt
+    from zeronotesamba_torch.ops.hpss import hpss_host
+    from zeronotesamba_torch.ops.vqt import log_xqt
+
+    sig, _ = click_track(8.0, 120.0, seed=11)
+    y = np.stack(hpss_host(sig, device="cpu")).astype(np.float32)
+    exact = _log_xqt_f64(y)
+    low = exact <= LOG_FLOOR
+    assert low.any() and (~low).any()
+    for got in (np.asarray(j_log_xqt(jax.numpy.asarray(y))), log_xqt(torch.tensor(y)).numpy()):
+        np.testing.assert_allclose(got[~low], exact[~low], atol=5e-4)
+        np.testing.assert_allclose(got[low], exact[low], atol=1e-2)
+
+
+@pytest.mark.parametrize("method", ["dbn", "threshold"])
+def test_decoders_exact_on_identical_input(results, method):
+    pulse = results[0].fused_pulse
+    np.testing.assert_array_equal(decode(pulse, method), j_decode(pulse, method))
+
+
+def test_dbn_exact_on_golden_fixture():
+    gold = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "dbn_golden.npz"))
+    for key in ("clean_bpm120", "jitter_bpm110", "ramp_160_90", "short_3s"):
+        act = gold[f"act_{key}"].astype(np.float64)
+        for correct, tag in ((True, "c"), (False, "u")):
+            cfg = DBNBeatDecoderConfig(correct=correct)
+            got = decode_beats(act, cfg)
+            np.testing.assert_array_equal(got, j_decode_beats(act, cfg))
+            np.testing.assert_allclose(got, gold[f"beats_{tag}_{key}"], atol=1e-9)
+
+
+def test_unported_decoder_raises():
+    with pytest.raises(NotImplementedError):
+        decode(np.zeros(100), "librosa")
+    with pytest.raises(ValueError):
+        decode(np.zeros(100), "viterbi")
+
+
+@pytest.fixture(scope="module")
+def short_wav(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("wav") / "song.wav")
+    audio_io.write_wav(path, click_track(3.0, 120.0, seed=4)[0], 16000)
+    return path
+
+
+def test_track_file(tracker, short_wav):
+    res = tracker.track_file(short_wav, separation="mix", decoder="threshold")
+    sig, _ = audio_io.load_audio(short_wav, target_sr=16000)
+    direct = tracker.track_signal(sig, separation="mix", decoder="threshold")
+    assert res.fused_pulse.shape == (1 + len(sig) // 256,)
+    np.testing.assert_array_equal(res.fused_pulse, direct.fused_pulse)
+    np.testing.assert_array_equal(res.beat_times, direct.beat_times)
+
+
+def test_cli_infer_on_cpu(tracker, short_wav, tmp_path, capsys):
+    params = str(tmp_path / "w.npz")
+    np.savez(params, **{k: v.numpy() for k, v in tracker.state_dict().items()})
+    out = str(tmp_path / "out.json")
+    cli.main(["infer", short_wav, "--params", params, "--separation", "mix", "--decoder", "dbn",
+              "--device", "cpu", "--out", out])
+    payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref = tracker.track_file(short_wav, separation="mix", decoder="dbn")
+    assert payload == {"n_frames": ref.fused_pulse.shape[0], "beat_times": [float(t) for t in ref.beat_times]}
+    with open(out) as fh:
+        assert json.load(fh) == payload
