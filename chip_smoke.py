@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (zeronotesamba_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--trace]
 
 Phases, each printing one JSON line:
 
 1. device     -- refuse to run without CUDA; card name and power limit; TF32 off.
 2. build      -- compile the kernels from csrc/ with nvcc (parallel, one per source).
 3. kernels    -- each kernel against its plain PyTorch version on the card at the
-                 main path's shapes (and batch 32 x 10 s, 0.5 s), with times:
-                 kernel, plain version, one library call, and the card's bound.
+                 main path's shapes (and batch 2 x 10 s, 32 x 10 s, 1 x 0.5 s, and
+                 a ragged 3 x 7.3 s), with times: kernel, plain version, one
+                 library call, and the card's bound.
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
                  the CPU with the same seeded weights; launch counters; the CLI.
 5. throughput -- log-VQT + FusedDownstream on batch 32 x 10 s, float32 and bf16.
@@ -20,14 +21,22 @@ chiprun_out/chip_smoke/smoke.jsonl in the checkout, whole, however much of
 the standard output is kept. Any failed check raises and the exit code is
 not 0. It imports nothing of JAX.
 
-A kernel's ``ms`` is its device time from a torch.profiler trace of
-back-to-back calls; that is the number held against ``bound_ms``. The
-CUDA-event time around the Python wrapper, which also counts the argument
-checks and the ctypes call, is ``event_ms`` beside it.
+A kernel's ``ms`` (and ``plain_ms``, ``library_ms``) is its device time:
+CUDA events around the replay of a CUDA graph of back-to-back calls, so the
+host's launch cost is not in it and no tracer is needed. That is the number
+held against ``bound_ms``. The CUDA-event time around the Python wrapper,
+which also counts the argument checks and the ctypes call, is ``event_ms``
+beside it. ``--trace`` adds torch.profiler readings: each kernel's self
+device time in a trace (``trace_ms``, ``plain_trace_ms``,
+``library_trace_ms``) and the device's busy time over one warm
+``track_signal``. The default run uses no profiler, so it does not depend on
+CUPTI being free for this process.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import math
 import os
@@ -48,7 +57,6 @@ SR = 16000
 FPS = 62.5
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-TAPS = 81
 CASCADE_TOL = dict(rtol=1e-5, atol=1e-5)
 OCTAVE_ATOL = 1e-4  # log magnitudes, float32 sums in another order
 VQT_ATOL = 5e-4  # kernels vs plain conv path, as the JAX package's Pallas tests
@@ -91,7 +99,40 @@ def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str | None = None, n: int = 20) -> float:
+@functools.lru_cache(maxsize=1)
+def _capture_stream() -> torch.cuda.Stream:
+    return torch.cuda.Stream()
+
+
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() call: CUDA events around one replay of a CUDA
+    graph of n back-to-back calls, over n; the median of ``reps`` replays.
+    fn is warmed up on the capture stream first."""
+    stream = _capture_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(times)
+
+
+def trace_ms(fn, kernel: str | None = None, n: int = 20) -> float:
     """Device time of one fn() call: the self device time of every kernel and
     copy in a torch.profiler trace of n back-to-back warm calls, over n.
     With ``kernel``, a kernel of that name must be in the trace."""
@@ -138,7 +179,7 @@ def phase_build() -> None:
     from zeronotesamba_torch.ops.cuda import build
 
     secs = build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if any(w in ln for w in ("registers", "smem", "spill"))]
              for n, log in build.build_logs().items()}
     emit("build", seconds=secs, dir=os.path.relpath(build.build_dir(), ROOT), ptxas=ptxas)
 
@@ -148,7 +189,7 @@ def _signal(batch: int, seconds: float, seed: int) -> torch.Tensor:
     return torch.tensor(0.1 * y, device="cuda")
 
 
-def phase_kernels(stats: dict) -> None:
+def phase_kernels(stats: dict, trace: bool) -> None:
     from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
     from zeronotesamba_torch.ops.filterbank import XQTParams
     from zeronotesamba_torch.ops.vqt import log_xqt
@@ -157,15 +198,20 @@ def phase_kernels(stats: dict) -> None:
     banks = vk.octave_banks(params, torch.device("cuda"))
     plan = vk.octave_plan(params)
     taps = vk.halfband_taps(torch.device("cuda"))[None, None, :]
+    n_taps = taps.shape[-1]
     lib_w = torch.cat([banks[j].t()[:, None, :] for j in range(params.n_octaves)]).view(
         params.n_octaves, 24, 1, 256)
     # (name, batch, seconds): the main path's shape first (anchor + positive of a 30 s clip).
-    shapes = [("main_path_b2_30s", 2, 30.0), ("b2_10s", 2, 10.0), ("b32_10s", 32, 10.0), ("b1_0.5s", 1, 0.5)]
+    # The last is ragged: neither its cascade input is a multiple of the cascade's
+    # 8,192-sample tile nor its 457 frames a multiple of the octave's 128-frame tile.
+    shapes = [("main_path_b2_30s", 2, 30.0), ("b2_10s", 2, 10.0), ("b32_10s", 32, 10.0), ("b1_0.5s", 1, 0.5),
+              ("ragged_b3_7.3s", 3, 7.3)]
     for k, (name, batch, secs) in enumerate(shapes):
         y = _signal(batch, secs, seed=100 + k)
         n_frames = params.num_frames(y.shape[1])
         x0 = vk.cascade_input(y, params)
-        got = vk.decimation_cascade(x0, 7)
+        packed = vk.decimation_cascade_packed(x0, 7)
+        got = vk.unpack_levels(packed, x0.shape[1])
         ref = vk.decimation_cascade_plain(x0, 7)
         torch.cuda.synchronize()
         c_err = 0.0
@@ -174,15 +220,15 @@ def phase_kernels(stats: dict) -> None:
             torch.testing.assert_close(g, r, **CASCADE_TOL, msg=lambda m: f"cascade level {s + 1} ({name}): {m}")
             c_err = max(c_err, (g - r).abs().max().item())
         levels = (x0,) + tuple(got)
+        table = vk.octave_table(params, x0.shape[1])
 
         def octaves(fn, out):
-            for j, dec, row, offset, hop in plan:
-                fn(levels[dec], banks[j], out, row=row, offset=offset, hop=hop, log_eps=params.log_eps)
+            fn(x0, packed, table, banks, out, log_eps=params.log_eps)
 
         out_k = torch.full((batch, params.n_bins, n_frames), float("nan"), device="cuda")
         out_p = torch.full_like(out_k, float("nan"))
-        octaves(vk.octave_log_xqt, out_k)
-        octaves(vk.octave_log_xqt_plain, out_p)
+        octaves(vk.octaves_log_xqt, out_k)
+        octaves(vk.octaves_log_xqt_plain, out_p)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out_k).all()), f"octave kernel left non-finite cells ({name})")
         o_err = (out_k - out_p).abs().max().item()
@@ -195,7 +241,8 @@ def phase_kernels(stats: dict) -> None:
 
         len0 = x0.shape[1]
         n_out = sum(len0 >> s for s in range(1, 8))
-        c_bound, c_by = bound(4.0 * batch * (len0 + n_out), 2.0 * TAPS * batch * n_out)
+        # The cascade's operations are those of the 41 non-zero taps (centre + 20 pairs).
+        c_bound, c_by = bound(4.0 * batch * (len0 + n_out), 2.0 * (1 + 2 * vk.PAIRS) * batch * n_out)
         o_in = sum((n_frames - 1) * hop + 256 for _, _, _, _, hop in plan)
         o_bound, o_by = bound(4.0 * batch * (o_in + params.n_bins * n_frames) + 4.0 * banks.numel(),
                               params.n_octaves * batch * n_frames * (2.0 * 24 * 256 + 5 * 12))
@@ -203,7 +250,7 @@ def phase_kernels(stats: dict) -> None:
         def lib_cascade():
             h = x0[:, None, :]
             for _ in range(7):
-                h = F.conv1d(h, taps, stride=2, padding=TAPS // 2)
+                h = F.conv1d(h, taps, stride=2, padding=n_taps // 2)
 
         def lib_octave():
             for j, dec, row, offset, hop in plan:
@@ -211,20 +258,25 @@ def phase_kernels(stats: dict) -> None:
                 F.conv1d(span, lib_w[j], stride=hop)
 
         def times(kernel_fn, kernel_name, plain_fn, lib_fn) -> dict:
-            """ms / plain_ms / library_ms from the device trace, and the
-            CUDA-event times around each Python call beside them."""
-            return dict(ms=device_ms(kernel_fn, kernel_name), plain_ms=device_ms(plain_fn),
-                        library_ms=device_ms(lib_fn), event_ms=time_ms(kernel_fn),
-                        plain_event_ms=time_ms(plain_fn), library_event_ms=time_ms(lib_fn))
+            """ms / plain_ms / library_ms from CUDA-graph replays, the
+            CUDA-event times around each Python call beside them, and with
+            ``trace`` the profiler's device times."""
+            out = dict(ms=device_ms(kernel_fn), plain_ms=device_ms(plain_fn), library_ms=device_ms(lib_fn),
+                       event_ms=time_ms(kernel_fn), plain_event_ms=time_ms(plain_fn),
+                       library_event_ms=time_ms(lib_fn))
+            if trace:
+                out.update(trace_ms=trace_ms(kernel_fn, kernel_name), plain_trace_ms=trace_ms(plain_fn),
+                           library_trace_ms=trace_ms(lib_fn))
+            return out
 
         row = dict(
             shape=name, batch=batch, seconds=secs, len0=len0, n_frames=n_frames,
             cascade=dict(max_abs_err=c_err, bound_ms=c_bound, bound_by=c_by,
-                         **times(lambda: vk.decimation_cascade(x0, 7), "cascade_kernel",
+                         **times(lambda: vk.decimation_cascade_packed(x0, 7), "cascade_kernel",
                                  lambda: vk.decimation_cascade_plain(x0, 7), lib_cascade)),
-            octave=dict(max_abs_err=o_err, bound_ms=o_bound, bound_by=o_by, launches_per_call=len(plan),
-                        **times(lambda: octaves(vk.octave_log_xqt, out_k), "octave_kernel",
-                                lambda: octaves(vk.octave_log_xqt_plain, out_p), lib_octave)),
+            octave=dict(max_abs_err=o_err, bound_ms=o_bound, bound_by=o_by, launches_per_call=1,
+                        **times(lambda: octaves(vk.octaves_log_xqt, out_k), "octaves_kernel",
+                                lambda: octaves(vk.octaves_log_xqt_plain, out_p), lib_octave)),
             log_xqt_fused=dict(max_abs_err_vs_log_xqt=v_err, ms=time_ms(lambda: vk.log_xqt_fused(y, params)),
                                plain_log_xqt_ms=time_ms(lambda: log_xqt(y, params))),
         )
@@ -232,8 +284,12 @@ def phase_kernels(stats: dict) -> None:
         for kname in ("cascade", "octave"):
             stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], row[kname]["max_abs_err"])
             if k == 0:  # summary times at the main path's shape
-                stats[kname].update({f: row[kname][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                                                "event_ms", "plain_event_ms", "library_event_ms")})
+                stats[kname].update({f: v for f, v in row[kname].items()
+                                     if f in ("ms", "bound_by") or f.endswith("_ms")})
+    # cuBLAS keeps a workspace for each stream that ran a matmul (the capture
+    # stream among them); free them so that the throughput phase's peak
+    # memory is the model's own.
+    torch._C._cuda_clearCublasWorkspaces()
 
 
 def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
@@ -243,12 +299,10 @@ def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
         check(d <= 1.0 / FPS + 1e-9, f"{what}: beats differ by {d} s (> 1 frame)")
 
 
-def _stage_breakdown(tracker, sig: np.ndarray) -> dict:
+def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
     """Host-clock seconds of each stage of one warm track_signal on the card
-    (the same calls, each ended by a synchronize), and the device's busy
-    time over one whole warm call from the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (the same calls, each ended by a synchronize), and with ``trace`` the
+    device's busy time over one whole warm call from the profiler."""
     from zeronotesamba_torch.data.separation import separate
     from zeronotesamba_torch.decode import decode
     from zeronotesamba_torch.ops.filterbank import XQTParams
@@ -268,6 +322,10 @@ def _stage_breakdown(tracker, sig: np.ndarray) -> dict:
             torch.as_tensor(np.stack([anc, pos]), device=tracker.device), XQTParams()))
         fused, out["encoders_s"] = timed(lambda: tracker.model(vqts[0:1, None], vqts[1:2, None]).cpu().numpy()[0])
     _, out["dbn_decode_s"] = timed(lambda: decode(fused, "dbn"))
+    if not trace:
+        return out
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: tracker.track_signal(sig, separation="hpss", decoder="dbn"))
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -280,7 +338,7 @@ def _stage_breakdown(tracker, sig: np.ndarray) -> dict:
     return out
 
 
-def phase_main_path(stats: dict) -> None:
+def phase_main_path(stats: dict, trace: bool) -> None:
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
     from zeronotesamba_torch.infer import BeatTracker
@@ -300,7 +358,8 @@ def phase_main_path(stats: dict) -> None:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(vk.LAUNCHES)
-    check(launches["cascade"] >= 1 and launches["octave"] >= 1, f"main path skipped a kernel: {launches}")
+    # One log_xqt_fused call per track_signal: one cascade and one octave launch.
+    check(launches == {"cascade": 1, "octave": 1}, f"main path launches {launches}, expected one of each")
     stats["cascade"]["launches"] = launches["cascade"]
     stats["octave"]["launches"] = launches["octave"]
 
@@ -344,7 +403,7 @@ def phase_main_path(stats: dict) -> None:
 
     emit("main_path", clip_s=30.0, n_frames=n_frames, launches=launches, max_abs_err_card_vs_cpu=errs,
          n_beats=len(res_g.beat_times), card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
-         card_breakdown=_stage_breakdown(gpu, sig),
+         card_breakdown=_stage_breakdown(gpu, sig, trace),
          cli=dict(seconds=cli_s, n_frames=payload["n_frames"], n_beats=len(payload["beat_times"])))
 
 
@@ -404,22 +463,26 @@ def phase_throughput() -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", action="store_true",
+                    help="add torch.profiler device times and the device's busy share (needs CUPTI)")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     stats = {k: {"max_abs_err": 0.0} for k in KERNEL_SOURCES}
-    phase_kernels(stats)
-    phase_main_path(stats)
+    phase_kernels(stats, args.trace)
+    phase_main_path(stats, args.trace)
     phase_throughput()
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        s = stats[name]
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=s["launches"],
-                            max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
-                            bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=s["library_ms"],
-                            event_ms=s["event_ms"], plain_event_ms=s["plain_event_ms"],
-                            library_event_ms=s["library_event_ms"]))
-        check(all(math.isfinite(v) for v in (s["ms"], s["plain_ms"], s["bound_ms"])), f"{name}: missing time")
+        s = stats.pop(name)
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=s.pop("launches"),
+                            max_abs_err=s.pop("max_abs_err"), ms=s.pop("ms"), plain_ms=s.pop("plain_ms"),
+                            bound_ms=s.pop("bound_ms"), bound_by=s.pop("bound_by"),
+                            library_ms=s.pop("library_ms"), **s))
+        k = kernels[-1]
+        check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "library_ms", "bound_ms")), f"{name}: missing time")
     emit("done", seconds=time.perf_counter() - t_start)
     out_line(json.dumps({"kernels": kernels}))
     out_line(smi)

@@ -38,36 +38,44 @@ def _signal(seed, batch, seconds, device):
     return torch.tensor(0.1 * y, device=device)
 
 
-@pytest.mark.parametrize("batch,seconds", [(2, 10.0), (1, 0.5)])
+# The last shape is ragged: neither its cascade input (183,040 samples) is a
+# multiple of the cascade's 8,192-sample tile nor its 457 frames a multiple
+# of the octave kernel's 128-frame tile.
+@pytest.mark.parametrize("batch,seconds", [(2, 10.0), (1, 0.5), (32, 10.0), (3, 7.3)])
 def test_kernels_match_plain(cuda, batch, seconds):
     p = XQTParams()
     y = _signal(9, batch, seconds, cuda)
     x0 = vk.cascade_input(y, p)
     before = dict(vk.LAUNCHES)
-    got = vk.decimation_cascade(x0, 7)
+    packed = vk.decimation_cascade_packed(x0, 7)
+    got = vk.unpack_levels(packed, x0.shape[1])
     for g, r in zip(got, vk.decimation_cascade_plain(x0, 7)):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
-    levels = (x0,) + tuple(got)
     banks = vk.octave_banks(p, cuda)
+    table = vk.octave_table(p, x0.shape[1])
     out_k = torch.full((batch, 96, p.num_frames(y.shape[1])), float("nan"), device=cuda)
     out_p = out_k.clone()
-    for j, dec, row, offset, hop in vk.octave_plan(p):
-        vk.octave_log_xqt(levels[dec], banks[j], out_k, row=row, offset=offset, hop=hop, log_eps=p.log_eps)
-        vk.octave_log_xqt_plain(levels[dec], banks[j], out_p, row=row, offset=offset, hop=hop, log_eps=p.log_eps)
+    vk.octaves_log_xqt(x0, packed, table, banks, out_k, log_eps=p.log_eps)
+    vk.octaves_log_xqt_plain(x0, packed, table, banks, out_p, log_eps=p.log_eps)
     torch.cuda.synchronize()
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=1e-4)
     assert vk.LAUNCHES["cascade"] == before["cascade"] + 1
-    assert vk.LAUNCHES["octave"] == before["octave"] + 8
+    assert vk.LAUNCHES["octave"] == before["octave"] + 1
+    before = dict(vk.LAUNCHES)
     torch.testing.assert_close(vk.log_xqt_fused(y, p), log_xqt(y, p), rtol=0, atol=5e-4)
+    assert vk.LAUNCHES == {"cascade": before["cascade"] + 1, "octave": before["octave"] + 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 1024, device=cuda)
     with pytest.raises(ValueError):
-        vk.decimation_cascade(torch.zeros(1024, 2, device=cuda).t())  # not contiguous
+        vk.decimation_cascade_packed(torch.zeros(1024, 2, device=cuda).t())  # not contiguous
     out = torch.empty(2, 96, 3, device=cuda)
-    with pytest.raises(ValueError):  # bank on another device
-        vk.octave_log_xqt(x, torch.zeros(256, 24), out, row=0, offset=0, hop=2, log_eps=1e-9)
+    plan = torch.tensor([[0, 0, 0, 2, 0, 0]], dtype=torch.int64)
+    with pytest.raises(ValueError):  # banks on another device
+        vk.octaves_log_xqt(x, x, plan, torch.zeros(1, 256, 24), out, log_eps=1e-9)
+    with pytest.raises(ValueError):  # plan on the card
+        vk.octaves_log_xqt(x, x, plan.to(cuda), torch.zeros(1, 256, 24, device=cuda), out, log_eps=1e-9)
 
 
 def test_beat_tracker_card_matches_cpu(cuda):

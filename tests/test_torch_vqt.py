@@ -67,7 +67,7 @@ def test_cascade_plain_matches_pallas(n_levels):
     holds against the reflect-padded chain."""
     x = _signal(3, (2, 256 * 40))
     ref = decimation_cascade_pallas(jnp.asarray(x), n_levels, interpret=True)
-    got = vk.decimation_cascade(torch.tensor(x), n_levels)
+    got = vk.unpack_levels(vk.decimation_cascade_packed(torch.tensor(x), n_levels), x.shape[1])
     assert len(got) == n_levels
     for g, r in zip(got, ref):
         assert tuple(g.shape) == r.shape
@@ -85,7 +85,8 @@ def test_octave_plain_matches_pallas(octave, hop):
     )  # (B, T, 12)
     out = torch.full((2, 96, n_frames), float("nan"))
     bank = torch.tensor(octave_banks_f32(p)[octave])
-    vk.octave_log_xqt(torch.tensor(level), bank, out, row=12 * octave, offset=offset, hop=hop, log_eps=p.log_eps)
+    vk.octave_log_xqt_plain(torch.tensor(level), bank, out, row=12 * octave, offset=offset, hop=hop,
+                            log_eps=p.log_eps)
     got = out[:, 12 * octave:12 * octave + 12, :].numpy()
     np.testing.assert_allclose(got, np.swapaxes(np.asarray(ref), 1, 2), atol=OCTAVE_ATOL)
     rest = torch.cat([out[:, :12 * octave], out[:, 12 * octave + 12:]], dim=1)
@@ -110,19 +111,27 @@ def test_generate_xqt_matches_jax():
 def test_kernel_wrappers_reject_bad_inputs():
     x = torch.zeros(2, 256 * 4)
     with pytest.raises(ValueError):
-        vk.decimation_cascade(torch.zeros(2, 1000))  # not a multiple of 256
+        vk.decimation_cascade_packed(torch.zeros(2, 1000))  # not a multiple of 256
     with pytest.raises(TypeError):
-        vk.decimation_cascade(x.double())
+        vk.decimation_cascade_packed(x.double())
     with pytest.raises(ValueError):
-        vk.decimation_cascade(x, 8)
-    bank = torch.zeros(256, 24)
+        vk.decimation_cascade_packed(x, 8)
+    banks = torch.zeros(1, 256, 24)
     out = torch.empty(2, 96, 5)
+
+    def plan(*row):
+        return torch.tensor([row], dtype=torch.int64)
+
     with pytest.raises(ValueError):  # frames run past the level
-        vk.octave_log_xqt(x, bank, out, row=0, offset=0, hop=256, log_eps=1e-9)
+        vk.octaves_log_xqt(x, x, plan(0, 0, 0, 256, 0, 0), banks, out, log_eps=1e-9)
     with pytest.raises(ValueError):  # row out of range
-        vk.octave_log_xqt(x, bank, out, row=90, offset=0, hop=2, log_eps=1e-9)
+        vk.octaves_log_xqt(x, x, plan(1, 0, 0, 2, 90, 0), banks, out, log_eps=1e-9)
+    with pytest.raises(ValueError):  # no such bank
+        vk.octaves_log_xqt(x, x, plan(0, 0, 0, 2, 0, 1), banks, out, log_eps=1e-9)
     with pytest.raises(ValueError):
-        vk.octave_log_xqt(x, torch.zeros(256, 128), out, row=0, offset=0, hop=2, log_eps=1e-9)
+        vk.octaves_log_xqt(x, x, plan(0, 0, 0, 2, 0, 0), torch.zeros(1, 256, 128), out, log_eps=1e-9)
+    with pytest.raises(ValueError):  # plan must be an int64 table
+        vk.octaves_log_xqt(x, x, plan(0, 0, 0, 2, 0, 0).int(), banks, out, log_eps=1e-9)
 
 
 def test_cpu_tensors_launch_no_kernel():
