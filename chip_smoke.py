@@ -14,6 +14,13 @@ Phases, each printing one JSON line:
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
                  the CPU with the same seeded weights; launch counters; the CLI.
 5. throughput -- log-VQT + FusedDownstream on batch 32 x 10 s, float32 and bf16.
+6. train      -- the supervised training path, one JSON line per part: the ETL
+                 (build_synthetic, 16 songs x 12 s, on the card, with its kernel
+                 launches counted and two songs held against the CPU), one
+                 train_step card vs CPU, train-step times at batch 8 x 768
+                 frames in float32 and bf16, the 4-fold experiment (mean
+                 held-out F1 >= 0.9, class-balanced BCE), and the
+                 build-data / beat CLI.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -61,6 +68,23 @@ CASCADE_TOL = dict(rtol=1e-5, atol=1e-5)
 OCTAVE_ATOL = 1e-4  # log magnitudes, float32 sums in another order
 VQT_ATOL = 5e-4  # kernels vs plain conv path, as the JAX package's Pallas tests
 PULSE_ATOL = 1e-3  # card vs CPU: cuDNN may pick FFT/Winograd sums
+LOG_FLOOR = -7.0  # log |X| at or below which a VQT cell holds float32 rounding noise
+NEAR_EMPTY_ATOL = 1e-2  # such cells' log, JAX vs port on the CPU (tests/test_torch_infer.py)
+# The same limit at the floor as an absolute error in |X|: a near-empty cell
+# holds rounding noise of a fixed size, so deeper cells show a larger log error.
+NEAR_EMPTY_MAG_ATOL = NEAR_EMPTY_ATOL * math.exp(LOG_FLOOR)
+ETL_SONGS, ETL_SONG_S = 16, 12.0
+PARITY_FRAMES = 768  # a 12 s song's 751 frames in its bucket
+PARITY_LOSS_RTOL = 1e-4  # one train_step, card vs CPU
+# The same step's gradients, card vs CPU, per tensor, as a share of that
+# tensor's largest |g|: a max-pool tie moves a tensor by about 1e-3 of it, a
+# wrong backward by about 1.
+PARITY_GRAD_REL = 1e-2
+EXPERIMENT_F1_MIN = 0.9
+# The experiment's seed (fold split, initial weights, shuffles, dropout).
+# pos_weight 8 and patience 60 were chosen on seed 0's folds, and patience 35
+# lost a fold on seed 1, so the gate runs on seed 2, where no recipe was tried.
+EXPERIMENT_SEED = 2
 KERNEL_SOURCES = {
     "cascade": ("zeronotesamba_torch/csrc/vqt_cascade.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:157"),
     "octave": ("zeronotesamba_torch/csrc/vqt_octave.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:32"),
@@ -462,6 +486,214 @@ def phase_throughput() -> None:
              max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
+def _etl(stats: dict) -> tuple:
+    """build_synthetic on the card: exactly one cascade and one octave launch
+    per generate_xqt call (one per stream of a song), and two songs rebuilt
+    on the CPU agree with the card's."""
+    from zeronotesamba_torch.data.datasets import build_synthetic
+    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+
+    for key in vk.LAUNCHES:
+        vk.LAUNCHES[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = build_synthetic(n_songs=ETL_SONGS, duration_s=ETL_SONG_S, seed=0, device="cuda")
+    etl_s = time.perf_counter() - t0
+    launches = dict(vk.LAUNCHES)
+    n_calls = sum(r.vqt.shape[0] for r in ds)
+    check(launches == {"cascade": n_calls, "octave": n_calls},
+          f"ETL launches {launches}, expected {n_calls} of each (one per generate_xqt call)")
+    for kname in KERNEL_SOURCES:
+        stats[kname]["etl_launches_per_song"] = launches[kname] / len(ds)
+
+    # Near-empty cells (log |X| <= -7 in a float64 evaluation) hold float32
+    # rounding noise of the cascade, which depends on the order of its sums:
+    # there each float32 path (card, CPU) is held against the float64 one in
+    # |X|, within NEAR_EMPTY_MAG_ATOL; all other cells card vs CPU within
+    # VQT_ATOL. The log errors are reported beside.
+    from zeronotesamba_torch.data.synthetic import percussive_pair
+    from zeronotesamba_torch.ops.vqt import log_xqt
+
+    errs = dict.fromkeys(["vqt", "near_empty_card_vs_f64", "near_empty_cpu_vs_f64", "near_empty_card_vs_cpu",
+                          "near_empty_card_vs_f64_mag", "near_empty_cpu_vs_f64_mag"], 0.0)
+    bpm_rng = np.random.default_rng(0)  # build_synthetic's draws, seed 0
+    for i, ref in enumerate(build_synthetic(n_songs=2, duration_s=ETL_SONG_S, seed=0, device="cpu")):
+        got = ds[i]
+        check(ref.name == got.name and ref.vqt.shape == got.vqt.shape, f"ETL record {got.name} differs in shape")
+        check(np.array_equal(ref.pulse, got.pulse) and np.array_equal(ref.beat_times, got.beat_times),
+              f"ETL pulse of {got.name} differs")
+        bpm = float(bpm_rng.uniform(70, 180))
+        check(ref.name == f"synth_{i:03d}_bpm{bpm:.0f}", f"ETL song {ref.name} is not the regenerated one")
+        streams = percussive_pair(ETL_SONG_S, bpm, seed=i)[:2]
+        exact = log_xqt(torch.tensor(np.stack(streams), dtype=torch.float64)).numpy()
+        low = exact <= LOG_FLOOR
+        errs["vqt"] = max(errs["vqt"], float(np.abs(got.vqt - ref.vqt)[~low].max()))
+        if low.any():
+            for key, a, b in (("card_vs_f64", got.vqt, exact), ("cpu_vs_f64", ref.vqt, exact),
+                              ("card_vs_cpu", got.vqt, ref.vqt), ("card_vs_f64_mag", np.exp(got.vqt), np.exp(exact)),
+                              ("cpu_vs_f64_mag", np.exp(ref.vqt), np.exp(exact))):
+                errs["near_empty_" + key] = max(errs["near_empty_" + key], float(np.abs(a - b)[low].max()))
+    check(errs["vqt"] <= VQT_ATOL and errs["near_empty_card_vs_f64_mag"] <= NEAR_EMPTY_MAG_ATOL
+          and errs["near_empty_cpu_vs_f64_mag"] <= NEAR_EMPTY_MAG_ATOL, f"ETL log-VQT card vs CPU {errs}")
+    emit("train", part="etl", n_songs=len(ds), song_s=ETL_SONG_S, seconds=etl_s, seconds_per_song=etl_s / len(ds),
+         launches=launches, generate_xqt_calls=n_calls, max_abs_err_card_vs_cpu=errs)
+    return ds
+
+
+def _train_step_parity(ds) -> None:
+    """One train_step at dropout off on the card and on the CPU from the
+    same seeded pretrained FusedDownstream, on two staged songs."""
+    from zeronotesamba_torch.train.state import downstream_learning_rate
+    from zeronotesamba_torch.train.supervised import StagedDataset, SupervisedConfig, init_state, train_step
+
+    cfg = SupervisedConfig(status="pretrained", lr=1e-5, batch_size=2, bucket_frames=PARITY_FRAMES)
+    lr = downstream_learning_rate(cfg.status, cfg.pre, cfg.lr)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        staged = StagedDataset(ds.records[:2], cfg.bucket_frames, device=dev)
+        (t, rows), = staged.plan(ds.names[:2], 2)
+        b = staged.buckets[t]
+        state = init_state(cfg, ds[0], 0, device=dev)
+        before = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        t0 = time.perf_counter()
+        state, loss, _ = train_step(state, b.vqt, b.pulse, b.mask, None, cfg.status)
+        runs[dev] = dict(loss=float(loss), seconds=time.perf_counter() - t0, before=before, frames=t,
+                         params={k: v.detach().cpu() for k, v in state.model.named_parameters()},
+                         grads={k: v.grad.cpu() for k, v in state.model.named_parameters()})
+    g, c = runs["cuda"], runs["cpu"]
+    check(all(torch.equal(g["before"][k], c["before"][k]) for k in g["before"]), "seeded weights differ")
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    param_err = max((g["params"][k] - c["params"][k]).abs().max().item() for k in c["params"])
+    # Adam's first step moves a weight by at most lr, so the two sides differ
+    # by at most 2 lr, plus the float32 rounding of each updated weight.
+    eps = torch.finfo(torch.float32).eps
+    param_excess = max(((g["params"][k] - c["params"][k]).abs() - 2 * lr - 2 * eps * c["params"][k].abs())
+                       .max().item() for k in c["params"])
+    moved = max((c["params"][k] - c["before"][k]).abs().max().item() for k in c["params"])
+    # Adam's first step moves every weight by about lr whatever its gradient,
+    # so the parameters cannot show a wrong backward: the gradients are held
+    # too. A max-pool window whose two largest inputs lie within float32
+    # rounding can route the gradient to the other one on the card, which
+    # moves every gradient below that pool by about 4e-3 of its largest
+    # (tests/test_torch_train.py): hence a limit of PARITY_GRAD_REL, not 1e-4.
+    grad_rel = {k: ((g["grads"][k] - c["grads"][k]).abs().max() / c["grads"][k].abs().max()).item()
+                for k in c["grads"]}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= PARITY_LOSS_RTOL, f"train_step loss card {g['loss']} vs CPU {c['loss']}")
+    check(0.0 < moved and param_excess <= 0.0, f"train_step params card vs CPU {param_err} > 2 lr ({2 * lr})")
+    check(grad_rel[worst] <= PARITY_GRAD_REL,
+          f"train_step gradient of {worst} card vs CPU {grad_rel[worst]} of its largest > {PARITY_GRAD_REL}")
+    emit("train", part="step_parity", status=cfg.status, batch=2, frames=g["frames"], lr=lr,
+         loss_card=g["loss"], loss_cpu=c["loss"], loss_rel_err=loss_rel, max_param_err=param_err,
+         max_param_step=moved, max_grad_err_of_tensor_max=grad_rel[worst], worst_grad=worst,
+         grad_rel_limit=PARITY_GRAD_REL, seconds_card=g["seconds"],
+         seconds_cpu=c["seconds"])
+
+
+def _train_throughput() -> None:
+    """bench.py's bench_supervised_train on the card: pretrained fused twin,
+    batch 8 x 768 frames, dropout on, distinct device batches."""
+    from zeronotesamba_torch.train.supervised import SupervisedConfig, dropout_generator, init_state, train_step
+
+    batch, frames, steps, warmup, distinct = 8, 768, 6, 2, 3
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    data = [torch.randn(batch, 2, 96, frames, device="cuda", generator=gen) * 4.0 - 6.0 for _ in range(distinct)]
+    pulse = torch.zeros(batch, frames, device="cuda")
+    mask = torch.ones(batch, frames, device="cuda")
+    flops = 3.0 * 2.0 * batch * encoder_flops(frames)  # fwd + bwd, two streams
+    for dtype in ("float32", "bfloat16"):
+        cfg = SupervisedConfig(status="pretrained", lr=1e-4, bucket_frames=frames, compute_dtype=dtype)
+        state = init_state(cfg, None, 0, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(warmup + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, _ = train_step(state, data[i % distinct], pulse, mask,
+                                        dropout_generator(0, i, "cuda"), cfg.status)
+            check(math.isfinite(float(loss)), f"train step loss not finite ({dtype})")  # the read syncs
+            if i >= warmup:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        emit("train", part="throughput", dtype=dtype, batch=batch, frames=frames, steps=steps, ms_per_step=ms,
+             step_ms=times, tflop_per_step=flops / 1e12, tflop_per_s=flops / 1e12 / (ms / 1e3),
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        del state
+
+
+def _experiment(ds) -> None:
+    """Does it learn: vanilla, lr 2e-4, batch 8, 4 folds, DBN decoding,
+    through run_beat_experiment, with the JAX demo suite's class balancing
+    and budget for these synthetic songs (zeronotesamba_tpu/experiments/
+    demo_suite.py:73-82): pos_weight 8, which removes the all-zeros plateau
+    of plain BCE, and at most 100 epochs. Validation F1 is flat while a fold
+    sits on the plateau, which lasted over 35 epochs in one fold, so
+    patience is 60; a fold that peaks by epoch 40 still stops early. The
+    seed is EXPERIMENT_SEED. cuDNN runs its deterministic algorithms here, so
+    the run repeats on the same card and software; its default ones moved
+    one fold's F1 from 0.917 to 0.833 between two runs."""
+    from zeronotesamba_torch.experiments.beat import BeatExperimentConfig, run_beat_experiment, summarize
+
+    cfg = BeatExperimentConfig(status="vanilla", lr=2e-4, batch_size=8, n_folds=4, max_epochs=100, patience=60,
+                               seed=EXPERIMENT_SEED, pos_weight=8.0, compute_dtype="float32", eval_method="dbn")
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        results = run_beat_experiment(ds, cfg, device="cuda", progress=False)
+        secs = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    summary = summarize(results)
+    folds = [dict(fold=r.fold, test_f1=float(r.test_metrics[0]), best_val_f1=r.best_val_f1, epochs=r.epochs_run,
+                  seconds=r.seconds) for r in results]
+    emit("train", part="experiment", status=cfg.status, lr=cfg.lr, batch=cfg.batch_size, pos_weight=cfg.pos_weight,
+         max_epochs=cfg.max_epochs, patience=cfg.patience, seed=cfg.seed, cudnn_deterministic=True, folds=folds,
+         mean_test_f1=summary["F1"], summary=summary, seconds=secs)
+    check(summary["F1"] >= EXPERIMENT_F1_MIN, f"mean held-out F1 {summary['F1']} < {EXPERIMENT_F1_MIN}")
+
+
+def _train_cli(ds) -> None:
+    """build-data and beat as subprocesses on the card."""
+    import shutil
+
+    from zeronotesamba_torch.data.datasets import BeatDataset
+
+    data_dir, out_json = os.path.join(OUT_DIR, "synth4"), os.path.join(OUT_DIR, "beat.json")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    cmds = {
+        "build_data": ["build-data", "synthetic", "--out", data_dir, "--n-songs", "4", "--device", "cuda"],
+        "beat": ["beat", "--data", data_dir, "--folds", "2", "--max-epochs", "2", "--out", out_json,
+                 "--device", "cuda"],
+    }
+    secs = {}
+    for name, args in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "zeronotesamba_torch", *args], cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        secs[name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI {name} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    cache = BeatDataset.load(data_dir)
+    check(cache.names == ds.names[:4], "build-data songs differ from build_synthetic's")
+    vqt_err = max(float(np.abs(a.vqt - b.vqt).max()) for a, b in zip(cache, ds))
+    check(vqt_err <= VQT_ATOL and all(np.array_equal(a.pulse, b.pulse) for a, b in zip(cache, ds)),
+          f"build-data cache vs in-process ETL: log-VQT {vqt_err}")
+    with open(out_json) as fh:
+        res = json.load(fh)
+    names = ("F1", "CMLc", "CMLt", "AMLc", "AMLt", "InfoGain")
+    check(all(math.isfinite(res[n]) and math.isfinite(res[n + "_std"]) for n in names), f"beat results {res}")
+    emit("train", part="cli", seconds=secs, n_songs=len(cache), max_abs_err_vqt_vs_in_process=vqt_err, results=res)
+
+
+def phase_train(stats: dict) -> None:
+    t0 = time.perf_counter()
+    ds = _etl(stats)
+    _train_step_parity(ds)
+    _train_throughput()
+    _experiment(ds)
+    _train_cli(ds)
+    emit("train", part="done", seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -474,6 +706,7 @@ def main() -> None:
     phase_kernels(stats, args.trace)
     phase_main_path(stats, args.trace)
     phase_throughput()
+    phase_train(stats)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         s = stats.pop(name)

@@ -8,7 +8,9 @@ no JAX, so it runs on a machine that has none:
 
 Tolerances: cascade samples 1e-5 (float32 FMA in another order), one
 octave's log magnitudes 1e-4, the log-VQT against the plain conv path 5e-4,
-pulses card vs CPU 1e-3 (cuDNN may pick FFT or Winograd sums).
+pulses card vs CPU 1e-3 (cuDNN may pick FFT or Winograd sums), one train
+step card vs CPU: loss 1e-4 relative, gradients 1e-2 of each tensor's
+largest, parameters 2 lr plus their float32 rounding.
 """
 
 import numpy as np
@@ -76,6 +78,36 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         vk.octaves_log_xqt(x, x, plan, torch.zeros(1, 256, 24), out, log_eps=1e-9)
     with pytest.raises(ValueError):  # plan on the card
         vk.octaves_log_xqt(x, x, plan.to(cuda), torch.zeros(1, 256, 24, device=cuda), out, log_eps=1e-9)
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One train_step at dropout off from the same seeded pretrained model on
+    the card and on the CPU: loss 1e-4 relative; gradients per tensor within
+    1e-2 of that tensor's largest |g| (a max-pool tie moves them by about
+    1e-3 of it, a wrong backward by about 1); every parameter within 2 lr
+    (Adam's first step moves a weight by at most lr) plus its float32
+    rounding (2 eps |p|)."""
+    from zeronotesamba_torch.train.state import downstream_learning_rate
+    from zeronotesamba_torch.train.supervised import SupervisedConfig, init_state, train_step
+
+    rng = np.random.default_rng(5)
+    vqt = (rng.standard_normal((2, 2, 96, 256)) * 4.0 - 6.0).astype(np.float32)
+    pulse = (rng.random((2, 256)) < 0.1).astype(np.float32)
+    mask = np.ones((2, 256), np.float32)
+    cfg = SupervisedConfig(status="pretrained", lr=1e-5)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = init_state(cfg, None, 3, device=dev)
+        state, loss, out = train_step(state, *(torch.tensor(x, device=dev) for x in (vqt, pulse, mask)), None,
+                                      cfg.status)
+        runs[dev.type] = (loss.item(), {k: v.detach().cpu() for k, v in state.model.named_parameters()},
+                          {k: v.grad.cpu() for k, v in state.model.named_parameters()})
+    (lg, pg, gg), (lc, pc, gc) = runs["cuda"], runs["cpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    lr = downstream_learning_rate(cfg.status, cfg.pre, cfg.lr)
+    for k in pc:
+        torch.testing.assert_close(gg[k], gc[k], rtol=0, atol=1e-2 * gc[k].abs().max().item(), msg=k)
+        torch.testing.assert_close(pg[k], pc[k], rtol=2 * torch.finfo(torch.float32).eps, atol=2 * lr)
 
 
 def test_beat_tracker_card_matches_cpu(cuda):

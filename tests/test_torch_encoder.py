@@ -36,7 +36,7 @@ def inputs():
 
 def _port(params, **kw):
     model = FusedDownstream(**kw)
-    model.pretext.load_state_dict(state_dict_from_jax(params))
+    model.load_state_dict(state_dict_from_jax(params))
     return model.eval()
 
 

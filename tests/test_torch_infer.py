@@ -73,28 +73,6 @@ def test_track_signal_matches_jax(results):
     _beats_close(out.beat_times, ref.beat_times)
 
 
-def _log_xqt_f64(y: np.ndarray) -> np.ndarray:
-    """The port's plain multi-rate log-VQT evaluated in float64."""
-    import torch.nn.functional as F
-
-    from zeronotesamba_torch.ops import vqt as tv
-    from zeronotesamba_torch.ops.filterbank import XQTParams
-
-    p = XQTParams()
-    kern, dec = (torch.tensor(c, dtype=torch.float64) for c in tv._conv_constants(p))
-    n_frames, w, top = p.num_frames(y.shape[-1]), p.window_len, p.n_octaves - 1
-    pad = (w // 2 + 1) << top
-    x = tv._reflect_pad_last(torch.tensor(y, dtype=torch.float64)[:, None], pad)
-    octaves = []
-    for j in range(top, -1, -1):
-        hop, offset = p.hop >> (top - j), (pad >> (top - j)) - w // 2
-        resp = F.conv1d(x[:, :, offset: offset + (n_frames - 1) * hop + w], kern[j], stride=hop)
-        octaves.append(torch.sqrt(resp[:, :12] ** 2 + resp[:, 12:] ** 2 + 1e-30))
-        if j > 0:
-            x = tv._decimate2(x, dec)
-    return torch.log(torch.cat(octaves[::-1], dim=1) + p.log_eps).numpy()
-
-
 def test_low_cells_sit_at_float32_rounding():
     """Why test_track_signal_matches_jax holds cells at log |X| <= -7 at 1e-2:
     there both float32 paths, JAX's and the port's, are about that far from a
@@ -105,7 +83,7 @@ def test_low_cells_sit_at_float32_rounding():
 
     sig, _ = click_track(8.0, 120.0, seed=11)
     y = np.stack(hpss_host(sig, device="cpu")).astype(np.float32)
-    exact = _log_xqt_f64(y)
+    exact = log_xqt(torch.tensor(y, dtype=torch.float64)).numpy()  # float64 evaluation
     low = exact <= LOG_FLOOR
     assert low.any() and (~low).any()
     for got in (np.asarray(j_log_xqt(jax.numpy.asarray(y))), log_xqt(torch.tensor(y)).numpy()):

@@ -10,7 +10,7 @@ from zeronotesamba_tpu.models.encoder import FusedDownstream as JFused
 from zeronotesamba_tpu.models.torch_compat import twin_params_to_torch
 from zeronotesamba_torch.infer import BeatTracker
 from zeronotesamba_torch.models.encoder import FusedDownstream
-from zeronotesamba_torch.models.weights import load_state_dict_file, state_dict_from_jax
+from zeronotesamba_torch.models.weights import load_state_dict_file, load_weights, state_dict_from_jax
 
 torch.set_num_threads(2)
 
@@ -26,15 +26,19 @@ def jax_params():
 
 
 def test_keys_and_values_match_torch_compat(jax_params):
+    """A FusedDownstream tree becomes the whole model's state dict: the
+    reference Pretext_CNN keys (torch_compat's) under ``pretext.``."""
     ours = state_dict_from_jax(jax_params)
     ref = twin_params_to_torch(jax_params)
-    assert list(ours) == list(ref)
+    assert list(ours) == ["pretext." + k for k in ref]
+    assert list(ours) == list(FusedDownstream().state_dict())
     for k, v in ref.items():
-        assert tuple(ours[k].shape) == v.shape, k
-        np.testing.assert_array_equal(ours[k].numpy(), v)
-    # The tree without its 'params'/'pretext' wrappers converts the same way.
+        assert tuple(ours["pretext." + k].shape) == v.shape, k
+        np.testing.assert_array_equal(ours["pretext." + k].numpy(), v)
+    # The TwinPretext tree inside it converts to the Pretext_CNN keys.
     inner = state_dict_from_jax(jax_params["params"]["pretext"])
-    assert all(torch.equal(inner[k], ours[k]) for k in ours)
+    assert list(inner) == list(ref)
+    assert all(torch.equal(inner[k], ours["pretext." + k]) for k in inner)
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +47,7 @@ def model():
 
 
 def _forward(model, sd):
-    model.pretext.load_state_dict(sd)
+    load_weights(model, sd)
     x = torch.tensor(np.random.default_rng(0).standard_normal((1, 1, 96, 16)).astype(np.float32) * 4 - 6)
     with torch.no_grad():
         return model(x, x.flip(-1))

@@ -1,9 +1,11 @@
 """Synthetic click tracks with known beat annotations.
 
-The port's copy of ``click_track`` and the helpers it calls from
-zeronotesamba_tpu/data/synthetic.py: clicks + harmonic accompaniment + noise
-with exactly known beat times, the fixture for the tests and the chip smoke
-run. With all difficulty knobs at 0 the tracks are metronomic and clean.
+The port's copy of ``click_track``, ``percussive_pair`` and the helpers they
+call from zeronotesamba_tpu/data/synthetic.py: clicks + harmonic
+accompaniment + noise with exactly known beat times, the fixture for the
+tests, the synthetic dataset (data/datasets.build_synthetic) and the chip
+smoke run. With all difficulty knobs at 0 the tracks are metronomic and
+clean. For a seed, each returns the JAX package's arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -194,3 +196,79 @@ def click_track(
 
     sig /= max(1.0, np.abs(sig).max() / 0.95)
     return sig.astype(np.float32), beat_times
+
+
+def percussive_pair(
+    duration_s: float,
+    bpm: float,
+    sr: int = 16000,
+    seed: int = 0,
+    *,
+    harmonics: int = 1,
+    click_freq: float = 1500.0,
+    burst: float = 0.0,
+    jitter_s: float = 0.0,
+    drift: float = 0.0,
+    amp_sd: float = 0.0,
+    drop_p: float = 0.0,
+    offbeat: float = 0.0,
+    offbeat_p: float = 0.75,
+    offbeat_swing: float = 0.0,
+    offbeat_accent: float = 1.0,
+    harm_offbeat: float = 0.0,
+    harm_depth: float = 0.4,
+    noise: float = 0.002,
+    bleed: float = 0.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(anchor, positive, beat_times): harmonic-only vs percussive-only stems.
+
+    Mimics the pretext pair structure (drums stem vs rest-of-signal,
+    reference pretext.py:30-86) for contrastive-training tests.
+    ``click_freq`` sets the percussive fundamental — vary it per song so a
+    corpus carries timbre diversity like a real dataset (each Ballroom/GTZAN
+    song has its own drum sound); a corpus with ONE global click frequency
+    lets the encoder memorize exact VQT bins, which destroys cross-corpus
+    transfer in a way the reference's cross_data.xlsx never exhibits.
+
+    Difficulty knobs forward to :func:`click_track` on the percussive stem;
+    ``harm_offbeat`` additionally spikes the harmonic stem's amplitude
+    envelope at off-beat positions (syncopated comping — a distractor pulse
+    in the NON-percussive stream, so the beat is not recoverable from
+    "any amplitude bump anywhere"). ``bleed`` cross-mixes a fraction of each
+    stem into the other — the residual a real separator (Spleeter/HPSS)
+    always leaves, so the pretext views are never perfectly disjoint.
+    """
+    clicks, beats = click_track(
+        duration_s, bpm, sr, accomp=False, noise=0.0, harmonics=harmonics,
+        click_freq=click_freq, burst=burst, jitter_s=jitter_s, drift=drift,
+        amp_sd=amp_sd, drop_p=drop_p, offbeat=offbeat, offbeat_p=offbeat_p,
+        offbeat_swing=offbeat_swing, offbeat_accent=offbeat_accent, seed=seed,
+    )
+    harm, _ = click_track(duration_s, bpm, sr, click_freq=0.0, click_len_s=1e-4, accomp=True, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    # Amplitude-modulate the harmonic stem at the played beats so both
+    # streams carry the pulse (as real music stems do). The envelope follows
+    # the ACTUAL (jittered/drifting) beat times, not a fixed cosine grid;
+    # ``harm_depth`` sets how strongly the pulse shows in this stem (legato
+    # accompaniment barely pulses — a deep fixed modulation hands an
+    # onset-flux baseline a free beat comb in the mix).
+    t = np.arange(len(harm)) / sr
+    env = np.zeros(len(harm))
+    width = 0.5 * 60.0 / bpm
+    for bt in beats:
+        env += np.clip(1.0 - np.abs(t - bt) / width, 0.0, 1.0) ** 2
+    mod = (1.0 - harm_depth) + harm_depth * np.clip(env, 0.0, 1.0)
+    if harm_offbeat and len(beats) > 1:
+        mids = beats[:-1] + 0.5 * np.diff(beats)
+        keep = rng.random(len(mids)) < 0.6
+        spike = np.zeros(len(harm))
+        for mt in mids[keep]:
+            spike += np.clip(1.0 - np.abs(t - mt) / (0.35 * width), 0.0, 1.0) ** 2
+        mod = mod + harm_offbeat * np.clip(spike, 0.0, 1.0)
+    anchor = harm * mod
+    if bleed:
+        anchor, clicks = anchor + bleed * clicks, clicks + bleed * anchor
+    anchor = (anchor + noise * rng.standard_normal(len(harm))).astype(np.float32)
+    if noise:
+        clicks = (clicks + noise * rng.standard_normal(len(clicks))).astype(np.float32)
+    return anchor, clicks, beats

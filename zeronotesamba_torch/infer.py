@@ -19,7 +19,7 @@ from zeronotesamba_torch.data.separation import separate
 from zeronotesamba_torch.decode import decode as decode_fn
 from zeronotesamba_torch.device import disable_tf32, resolve_device
 from zeronotesamba_torch.models.encoder import FusedDownstream
-from zeronotesamba_torch.models.weights import state_dict_from_jax
+from zeronotesamba_torch.models.weights import load_weights, reference_state_dict
 from zeronotesamba_torch.ops.filterbank import XQTParams
 from zeronotesamba_torch.ops.vqt import best_log_xqt
 
@@ -60,15 +60,12 @@ class BeatTracker:
         if params_or_state_dict is None:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
         else:
-            sd = params_or_state_dict
-            if "params" in sd or "pretext" in sd:
-                sd = state_dict_from_jax(sd)
-            self.model.pretext.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+            load_weights(self.model, params_or_state_dict)
         self.model.to(self.device).eval()
 
     def state_dict(self) -> dict:
         """The weights in the reference key names, on the CPU."""
-        return {k: v.detach().cpu() for k, v in self.model.pretext.state_dict().items()}
+        return reference_state_dict(self.model)
 
     def track_signal(
         self,

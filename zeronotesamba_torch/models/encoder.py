@@ -20,6 +20,12 @@ dropout order, float32 output, and ``compute_dtype`` float32 by default
 (bfloat16 as an option). On the float32 path the caller
 turns TF32 off (device.disable_tf32), or cuDNN runs the convs in TF32.
 The convs stay cuDNN, as the JAX package left them to XLA.
+
+Dropout in training mode is Flax's: each cell is kept with probability
+1 - rate and scaled by 1 / (1 - rate). Its mask is drawn from the
+``generator`` the forward pass is given (on the input's device), or from
+torch's default generator without one, so a seeded training run repeats
+its masks exactly. Eval mode draws nothing.
 """
 
 from __future__ import annotations
@@ -103,7 +109,14 @@ class Encoder(nn.Module):
                     _he_normal_(conv.weight, generator)
                     conv.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, h: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        if not self.training or self.dropout_rate == 0.0:
+            return h
+        keep = 1.0 - self.dropout_rate
+        kept = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        return torch.where(kept, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if x.ndim != 4 or x.shape[1] != 1:
             raise ValueError("Encoder expects (B, 1, freq, time)")
         h = ((x - INPUT_MEAN) / INPUT_STD).to(self.compute_dtype)
@@ -114,7 +127,7 @@ class Encoder(nn.Module):
                 w = POOL_AFTER[i]
                 h = F.max_pool2d(h, kernel_size=(w, 1), stride=(w, 1))
             h = F.relu(h)
-            h = F.dropout(h, self.dropout_rate, training=self.training)
+            h = self._dropout(h, generator)
         # (B, 128, 1, T) -> (B, 128, T)
         return h.squeeze(2).float()
 
@@ -152,14 +165,14 @@ class DSCNN(nn.Module):
         self.pretrained.reset_parameters(generator)
         self.fc1.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc1(self.pretrained(x))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.fc1(self.pretrained(x, generator))
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc1.logits(self.pretrained(x))
+    def logits(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.fc1.logits(self.pretrained(x, generator))
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pretrained(x)
+    def embed(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.pretrained(x, generator)
 
 
 class TwinPretext(nn.Module):
@@ -175,11 +188,11 @@ class TwinPretext(nn.Module):
         self.anchor.reset_parameters(generator)
         self.postve.reset_parameters(generator)
 
-    def forward(self, anc: torch.Tensor, pos: torch.Tensor):
-        return self.anchor(anc), self.postve(pos)
+    def forward(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None):
+        return self.anchor(anc, generator), self.postve(pos, generator)
 
-    def logits(self, anc: torch.Tensor, pos: torch.Tensor):
-        return self.anchor.logits(anc), self.postve.logits(pos)
+    def logits(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None):
+        return self.anchor.logits(anc, generator), self.postve.logits(pos, generator)
 
 
 class FusedDownstream(nn.Module):
@@ -209,10 +222,10 @@ class FusedDownstream(nn.Module):
             return (anc + pos) / 2.0
         return torch.maximum(anc, pos)
 
-    def forward(self, anc: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        return self.fuse(*self.pretext(anc, pos))
+    def forward(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.fuse(*self.pretext(anc, pos, generator))
 
-    def logits(self, anc: torch.Tensor, pos: torch.Tensor):
+    def logits(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None):
         """Per-stream logits; with max fusion sigmoid(max(la, lb)) equals the
         fused probability exactly (sigmoid is monotonic)."""
-        return self.pretext.logits(anc, pos)
+        return self.pretext.logits(anc, pos, generator)

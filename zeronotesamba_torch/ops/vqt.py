@@ -60,12 +60,17 @@ def _decimate2(x: torch.Tensor, dec_kern: torch.Tensor) -> torch.Tensor:
 
 
 def xqt_magnitude(y: torch.Tensor, params: XQTParams = XQTParams()) -> torch.Tensor:
-    """Batched XQT magnitudes: (B, L) float -> (B, n_bins, 1 + L//hop)."""
+    """Batched XQT magnitudes: (B, L) float -> (B, n_bins, 1 + L//hop).
+
+    Float32, or float64 for a float64 ``y``: the same transform of the same
+    float32 constants without float32 rounding, the reference that near-empty
+    cells are held against."""
     if y.ndim != 2:
         raise ValueError("xqt_magnitude expects (batch, samples)")
+    dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
     kerns_np, dec_np = _conv_constants(params)
-    kerns = torch.tensor(kerns_np, device=y.device)
-    dec_kern = torch.tensor(dec_np, device=y.device)
+    kerns = torch.tensor(kerns_np, device=y.device, dtype=dtype)
+    dec_kern = torch.tensor(dec_np, device=y.device, dtype=dtype)
     n_frames = params.num_frames(y.shape[-1])
     w = params.window_len
     bpo = params.bins_per_octave
@@ -75,7 +80,7 @@ def xqt_magnitude(y: torch.Tensor, params: XQTParams = XQTParams()) -> torch.Ten
     # one spare sample per halving.
     pad = (w // 2 + 1) << dec_max
 
-    x = _reflect_pad_last(y.float()[:, None, :], pad)
+    x = _reflect_pad_last(y.to(dtype)[:, None, :], pad)
     octaves = []
     for j in range(params.n_octaves - 1, -1, -1):
         dec = params.n_octaves - 1 - j
