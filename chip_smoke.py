@@ -21,6 +21,13 @@ Phases, each printing one JSON line:
                  frames in float32 and bf16, the 4-fold experiment (mean
                  held-out F1 >= 0.9, class-balanced BCE), and the
                  build-data / beat CLI.
+7. pretext    -- self-supervised pretext training, one JSON line per part: the
+                 banks (mine_stems with HPSS on 12 synthetic 12 s mixes and a
+                 tone, the stem bank and the CLMR bank on the card, launches
+                 counted, two items held against the CPU), one staged k = 2
+                 NT-Xent step card vs CPU, step times at batch 16 x 313 in
+                 float32 and bf16, a 3-epoch train_pretext with proxy-F1
+                 selection and one resumed epoch, and the pretext / infer CLI.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -43,6 +50,7 @@ CUPTI being free for this process.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -85,6 +93,13 @@ EXPERIMENT_F1_MIN = 0.9
 # pos_weight 8 and patience 60 were chosen on seed 0's folds, and patience 35
 # lost a fold on seed 1, so the gate runs on seed 2, where no recipe was tried.
 EXPERIMENT_SEED = 2
+PRETEXT_TRACKS, PRETEXT_SONG_S = 12, 12.0
+PRETEXT_CROP = 313  # the reference's crop; bank items of 10 s clips hold 626 frames
+PRETEXT_FRAMES = 626
+# The gate's lower bound for mining: these synthetic mixes balance drums and
+# the rest in 17% to 37% of their frames after HPSS, under the default 0.3.
+PRETEXT_LOWER_P = 0.1
+PRETEXT_K2_RTOL = 1e-5  # the k = 2 step vs the mean of its tracks' NT-Xent, on the card
 KERNEL_SOURCES = {
     "cascade": ("zeronotesamba_torch/csrc/vqt_cascade.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:157"),
     "octave": ("zeronotesamba_torch/csrc/vqt_octave.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:32"),
@@ -486,6 +501,28 @@ def phase_throughput() -> None:
              max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
+VQT_ERR_KEYS = ("vqt", "near_empty_card_vs_f64", "near_empty_cpu_vs_f64", "near_empty_card_vs_cpu",
+                "near_empty_card_vs_f64_mag", "near_empty_cpu_vs_f64_mag")
+
+
+def _add_vqt_errs(errs: dict, card: np.ndarray, cpu: np.ndarray, exact: np.ndarray) -> None:
+    """Fold one log-VQT's card, CPU and float64 evaluations into ``errs``:
+    card vs CPU above the log floor, and in the near-empty cells each float32
+    path against float64, in the log and in |X|."""
+    low = exact <= LOG_FLOOR
+    errs["vqt"] = max(errs["vqt"], float(np.abs(card - cpu)[~low].max()))
+    if low.any():
+        for key, a, b in (("card_vs_f64", card, exact), ("cpu_vs_f64", cpu, exact),
+                          ("card_vs_cpu", card, cpu), ("card_vs_f64_mag", np.exp(card), np.exp(exact)),
+                          ("cpu_vs_f64_mag", np.exp(cpu), np.exp(exact))):
+            errs["near_empty_" + key] = max(errs["near_empty_" + key], float(np.abs(a - b)[low].max()))
+
+
+def _vqt_errs_hold(errs: dict) -> bool:
+    return (errs["vqt"] <= VQT_ATOL and errs["near_empty_card_vs_f64_mag"] <= NEAR_EMPTY_MAG_ATOL
+            and errs["near_empty_cpu_vs_f64_mag"] <= NEAR_EMPTY_MAG_ATOL)
+
+
 def _etl(stats: dict) -> tuple:
     """build_synthetic on the card: exactly one cascade and one octave launch
     per generate_xqt call (one per stream of a song), and two songs rebuilt
@@ -514,8 +551,7 @@ def _etl(stats: dict) -> tuple:
     from zeronotesamba_torch.data.synthetic import percussive_pair
     from zeronotesamba_torch.ops.vqt import log_xqt
 
-    errs = dict.fromkeys(["vqt", "near_empty_card_vs_f64", "near_empty_cpu_vs_f64", "near_empty_card_vs_cpu",
-                          "near_empty_card_vs_f64_mag", "near_empty_cpu_vs_f64_mag"], 0.0)
+    errs = dict.fromkeys(VQT_ERR_KEYS, 0.0)
     bpm_rng = np.random.default_rng(0)  # build_synthetic's draws, seed 0
     for i, ref in enumerate(build_synthetic(n_songs=2, duration_s=ETL_SONG_S, seed=0, device="cpu")):
         got = ds[i]
@@ -525,16 +561,8 @@ def _etl(stats: dict) -> tuple:
         bpm = float(bpm_rng.uniform(70, 180))
         check(ref.name == f"synth_{i:03d}_bpm{bpm:.0f}", f"ETL song {ref.name} is not the regenerated one")
         streams = percussive_pair(ETL_SONG_S, bpm, seed=i)[:2]
-        exact = log_xqt(torch.tensor(np.stack(streams), dtype=torch.float64)).numpy()
-        low = exact <= LOG_FLOOR
-        errs["vqt"] = max(errs["vqt"], float(np.abs(got.vqt - ref.vqt)[~low].max()))
-        if low.any():
-            for key, a, b in (("card_vs_f64", got.vqt, exact), ("cpu_vs_f64", ref.vqt, exact),
-                              ("card_vs_cpu", got.vqt, ref.vqt), ("card_vs_f64_mag", np.exp(got.vqt), np.exp(exact)),
-                              ("cpu_vs_f64_mag", np.exp(ref.vqt), np.exp(exact))):
-                errs["near_empty_" + key] = max(errs["near_empty_" + key], float(np.abs(a - b)[low].max()))
-    check(errs["vqt"] <= VQT_ATOL and errs["near_empty_card_vs_f64_mag"] <= NEAR_EMPTY_MAG_ATOL
-          and errs["near_empty_cpu_vs_f64_mag"] <= NEAR_EMPTY_MAG_ATOL, f"ETL log-VQT card vs CPU {errs}")
+        _add_vqt_errs(errs, got.vqt, ref.vqt, log_xqt(torch.tensor(np.stack(streams), dtype=torch.float64)).numpy())
+    check(_vqt_errs_hold(errs), f"ETL log-VQT card vs CPU {errs}")
     emit("train", part="etl", n_songs=len(ds), song_s=ETL_SONG_S, seconds=etl_s, seconds_per_song=etl_s / len(ds),
          launches=launches, generate_xqt_calls=n_calls, max_abs_err_card_vs_cpu=errs)
     return ds
@@ -694,6 +722,269 @@ def phase_train(stats: dict) -> None:
     emit("train", part="done", seconds=time.perf_counter() - t0)
 
 
+def _pretext_bank(stats: dict) -> tuple:
+    """mine_stems (HPSS on the card) over PRETEXT_TRACKS synthetic 12 s mixes
+    and a pure tone (the gate rejects it), then the stem bank and the CLMR
+    bank on the card, with their kernel launches counted; two stem-bank
+    items rebuilt on the CPU from the same stem wavs."""
+    import random
+    import shutil
+
+    from zeronotesamba_torch.data import audio_io
+    from zeronotesamba_torch.data.fma import gen_clmr_bank, mine_stems
+    from zeronotesamba_torch.data.separation import load_stem_dir
+    from zeronotesamba_torch.data.stems import fold_stems, mine_pair
+    from zeronotesamba_torch.data.synthetic import percussive_pair
+    from zeronotesamba_torch.experiments.pretext_driver import build_bank_from_stem_root
+    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+    from zeronotesamba_torch.ops.vqt import generate_xqt, log_xqt
+
+    corpus, stem_root = os.path.join(OUT_DIR, "pretext_corpus"), os.path.join(OUT_DIR, "pretext_stems")
+    for d in (corpus, stem_root):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(corpus)
+    names = []
+    for i in range(PRETEXT_TRACKS):
+        anchor, positive, _ = percussive_pair(PRETEXT_SONG_S, 80.0 + 8 * i, seed=100 + i, click_freq=900.0 + 100 * i)
+        names.append(f"mix{i:02d}")
+        audio_io.write_wav(os.path.join(corpus, names[-1] + ".wav"), anchor + positive, SR)
+    t = np.arange(int(PRETEXT_SONG_S * SR)) / SR
+    audio_io.write_wav(os.path.join(corpus, "tone.wav"), 0.3 * np.sin(2 * np.pi * 440.0 * t), SR)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = mine_stems(corpus, stem_root, separation="hpss", lower_p=PRETEXT_LOWER_P, device="cuda")
+    mine_s = time.perf_counter() - t0
+    check(written == names, f"mine_stems wrote {written}, expected every mix and not the tone")
+
+    counts = {}
+    for name, build in (("stem", lambda: build_bank_from_stem_root(stem_root, 10**9, seed=0, device="cuda")),
+                        ("clmr", lambda: gen_clmr_bank(corpus, 10**9, clip_frames=PRETEXT_CROP, seed=0,
+                                                       device="cuda"))):
+        for key in vk.LAUNCHES:
+            vk.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank = build()
+        torch.cuda.synchronize()
+        counts[name] = dict(items=len(bank), shape=list(bank.shape), seconds=time.perf_counter() - t0,
+                            launches=dict(vk.LAUNCHES))
+        counts[name]["seconds_per_item"] = counts[name]["seconds"] / len(bank)
+        per_item = 2 if name == "stem" else 1  # generate_xqt calls an item
+        check(counts[name]["launches"] == {"cascade": per_item * len(bank), "octave": per_item * len(bank)},
+              f"{name} bank launches {counts[name]['launches']}, expected {per_item} of each a bank item")
+        if name == "stem":
+            stem_bank = bank
+    check(stem_bank.shape == (PRETEXT_TRACKS, 2, 96, PRETEXT_FRAMES), f"stem bank shape {stem_bank.shape}")
+    check(counts["clmr"]["shape"] == [PRETEXT_TRACKS + 1, 2, 96, PRETEXT_CROP], f"CLMR bank {counts['clmr']}")
+    check(bool(np.isfinite(stem_bank).all()), "stem bank not finite")
+    for kname in KERNEL_SOURCES:
+        stats[kname]["pretext_launches_per_bank_item"] = counts["stem"]["launches"][kname] / len(stem_bank)
+        stats[kname]["pretext_launches_per_clmr_item"] = counts["clmr"]["launches"][kname] / counts["clmr"]["items"]
+
+    # The first two items again on the CPU: build_bank_from_stem_root's
+    # walk (shuffled track ids, one gated crop pair a track) from the same
+    # seed, each crop's log-VQT in float32 on the CPU and in float64.
+    errs = dict.fromkeys(VQT_ERR_KEYS, 0.0)
+    rng = random.Random(0)
+    tids = sorted(os.listdir(stem_root))
+    rng.shuffle(tids)
+    tids = [t for t in tids if os.path.isdir(os.path.join(stem_root, t))]
+    for item, tid in zip(stem_bank[:2], tids):
+        anchor, positive = fold_stems(load_stem_dir(os.path.join(stem_root, tid)))
+        pair = np.stack(mine_pair(anchor, positive, rng=rng))
+        cpu = np.stack([generate_xqt(x, SR, "vqt", device="cpu") for x in pair])
+        _add_vqt_errs(errs, item, cpu, log_xqt(torch.tensor(pair, dtype=torch.float64)).numpy())
+    check(_vqt_errs_hold(errs), f"stem bank log-VQT card vs CPU {errs}")
+    emit("pretext", part="bank", tracks=PRETEXT_TRACKS, song_s=PRETEXT_SONG_S, mined=len(written),
+         mine_stems_seconds=mine_s, lower_p=PRETEXT_LOWER_P, stem_bank=counts["stem"], clmr_bank=counts["clmr"],
+         max_abs_err_card_vs_cpu=errs)
+    return stem_bank
+
+
+def _pretext_step_parity(bank: np.ndarray) -> None:
+    """One staged zerons step at k = 2, batch 4 x 313, dropout 0, on the card
+    and on the CPU from the same seeded TwinPretext; on the card, the k = 2
+    loss against the mean of the two tracks' own NT-Xent.
+
+    Near the NT-Xent plateau a max-pool or ReLU decision that flips between
+    the two float32 runs (inputs within rounding of a tie) moves a gradient
+    by up to about 1e-2 of its tensor's largest entry, so the gradients are
+    held on a third run: the card's step replaying the CPU's decisions
+    (utils/parity.py). The card's own step gives the loss, the parameters,
+    the gradients' gap without sharing and the count of flipped decisions."""
+    from zeronotesamba_torch.train.pretext import (
+        PretextConfig, init_pretext_state, make_eval_step, make_staged_train_step, sample_shifts, staged_crops,
+    )
+    from zeronotesamba_torch.utils.parity import PiecewiseDecisions
+
+    cfg = PretextConfig(batch_size=4, crop_frames=PRETEXT_CROP, dropout_rate=0.0, lr=1e-5)
+    rng = np.random.default_rng(3)
+    tracks = np.array([0, 1])
+    starts = np.stack([sample_shifts(bank.shape[-1], cfg.batch_size, cfg.crop_frames, rng) for _ in tracks])
+    runs, decisions = {}, {"cpu": PiecewiseDecisions(), "card": PiecewiseDecisions()}
+    for run, dev in (("cpu", "cpu"), ("card", "cuda"), ("shared", "cuda")):
+        bank_dev = torch.as_tensor(bank[:2], device=dev)
+        state = init_pretext_state(cfg, 0, device=dev)
+        before = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        singles = [[v.item() for v in make_eval_step(cfg)(state, staged_crops(
+            bank_dev, torch.tensor([t], device=dev), torch.as_tensor(st[None], device=dev), cfg.crop_frames)[0])]
+            for t, st in zip(tracks, starts)] if run == "card" else None
+        t0 = time.perf_counter()
+        with decisions["cpu"].replay() if run == "shared" else decisions[run].record():
+            state, loss, pc, nc = make_staged_train_step(cfg)(state, bank_dev, tracks, starts, None)
+        runs[run] = dict(loss=loss.item(), cosines=[pc.item(), nc.item()], singles=singles,
+                         seconds=time.perf_counter() - t0, before=before,
+                         params={k: v.detach().cpu() for k, v in state.model.named_parameters()},
+                         grads={k: v.grad.cpu() for k, v in state.model.named_parameters()})
+    g, c = runs["card"], runs["cpu"]
+    check(all(torch.equal(g["before"][k], c["before"][k]) for k in g["before"]), "seeded weights differ")
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    eps = torch.finfo(torch.float32).eps
+    param_excess = max(((g["params"][k] - c["params"][k]).abs() - 2 * cfg.lr - 2 * eps * c["params"][k].abs())
+                       .max().item() for k in c["params"])
+    moved = max((c["params"][k] - c["before"][k]).abs().max().item() for k in c["params"])
+
+    def grad_rel(run: str) -> dict:
+        return {k: ((runs[run]["grads"][k] - c["grads"][k]).abs().max() / c["grads"][k].abs().max()).item()
+                for k in c["grads"]}
+
+    shared, own = grad_rel("shared"), grad_rel("card")
+    worst, worst_own = max(shared, key=shared.get), max(own, key=own.get)
+    mean_singles = np.mean(g["singles"], axis=0)
+    k2_rel = float(np.max(np.abs(np.array([g["loss"]] + g["cosines"]) - mean_singles) / np.abs(mean_singles)))
+    check(loss_rel <= PARITY_LOSS_RTOL, f"pretext step loss card {g['loss']} vs CPU {c['loss']}")
+    check(0.0 < moved and param_excess <= 0.0, f"pretext step params card vs CPU exceed 2 lr by {param_excess}")
+    check(shared[worst] <= PARITY_GRAD_REL,
+          f"pretext step gradient of {worst} card vs CPU {shared[worst]} of its largest > {PARITY_GRAD_REL}")
+    check(k2_rel <= PRETEXT_K2_RTOL, f"k = 2 step vs the mean of its tracks' NT-Xent: {k2_rel} relative")
+    emit("pretext", part="step_parity", task=cfg.task, tracks=2, batch=cfg.batch_size, crop=cfg.crop_frames,
+         lr=cfg.lr, loss_card=g["loss"], loss_cpu=c["loss"], loss_rel_err=loss_rel, ln_batch=math.log(cfg.batch_size),
+         max_param_excess_over_2lr=param_excess, max_param_step=moved, max_grad_err_of_tensor_max=shared[worst],
+         worst_grad=worst, grad_rel_limit=PARITY_GRAD_REL, unshared_max_grad_err_of_tensor_max=own[worst_own],
+         unshared_worst_grad=worst_own, decisions_flipped=decisions["cpu"].differing(decisions["card"]),
+         k2_vs_mean_of_tracks_rel=k2_rel, seconds_card=g["seconds"], seconds_cpu=c["seconds"])
+
+
+def _pretext_throughput() -> None:
+    """bench.py's bench_pretext_train on the card: the staged zerons step,
+    batch 16 x 313 from a random 4-track bank of 626 frames on the device,
+    distinct (track, starts) a step, dropout on, 3 warm-up and 10 timed
+    steps, each ended by a loss read."""
+    from zeronotesamba_torch.train.pretext import (
+        PretextConfig, init_pretext_state, make_staged_train_step, sample_shifts,
+    )
+    from zeronotesamba_torch.train.supervised import dropout_generator
+
+    batch, steps, warmup = 16, 10, 3
+    bank = torch.randn(4, 2, 96, 2 * PRETEXT_CROP, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+    flops = 3.0 * 2.0 * batch * encoder_flops(PRETEXT_CROP)  # fwd + bwd, two streams
+    for dtype in ("float32", "bfloat16"):
+        cfg = PretextConfig(batch_size=batch, crop_frames=PRETEXT_CROP, compute_dtype=dtype)
+        state = init_pretext_state(cfg, 0, device="cuda")
+        step = make_staged_train_step(cfg)
+        rng = np.random.default_rng(2)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(warmup + steps):
+            starts = sample_shifts(bank.shape[-1], batch, PRETEXT_CROP, rng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, _, _ = step(state, bank, i % 4, starts, dropout_generator(3, i, "cuda"))
+            check(math.isfinite(float(loss)), f"pretext step loss not finite ({dtype})")  # the read syncs
+            if i >= warmup:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        emit("pretext", part="throughput", dtype=dtype, batch=batch, crop=PRETEXT_CROP, steps=steps, ms_per_step=ms,
+             step_ms=times, tflop_per_step=flops / 1e12, tflop_per_s=flops / 1e12 / (ms / 1e3),
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        del state
+
+
+def _pretext_run(bank: np.ndarray) -> None:
+    """train_pretext on the mined bank (10 train, 2 val items), zerons,
+    batch 16 x 313, lr 3e-6, 3 epochs, proxy-F1 selection on 4 synthetic
+    songs every epoch, with a resume directory; then one more epoch from it,
+    and the val-loss checkpoint into BeatTracker on the card."""
+    import shutil
+
+    from zeronotesamba_torch.data.datasets import build_synthetic
+    from zeronotesamba_torch.data.synthetic import click_track
+    from zeronotesamba_torch.experiments.pretext_driver import PretextRunConfig, train_pretext
+    from zeronotesamba_torch.infer import BeatTracker
+    from zeronotesamba_torch.train.checkpoint import load_params
+
+    run_dir = os.path.join(OUT_DIR, "pretext_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt = os.path.join(run_dir, "shift_pret_cnn_16.pth")
+    cfg = PretextRunConfig(task="zerons", num_epochs=3, batch_size=16, crop_frames=PRETEXT_CROP, lr=3e-6, seed=0,
+                           checkpoint_path=ckpt, selection="proxy_f1",
+                           proxy_dataset=build_synthetic(4, 12.0, seed=7, device="cuda"), proxy_every=1,
+                           resume_dir=os.path.join(run_dir, "resume"))
+    t0 = time.perf_counter()
+    _, hist = train_pretext(bank[:10], bank[10:12], cfg, device="cuda")
+    run_s = time.perf_counter() - t0
+    finite = all(math.isfinite(v) for key in ("train_loss", "val_loss", "train_pos", "train_neg", "val_pos",
+                                              "val_neg", "proxy_f1") for v in hist[key])
+    check(len(hist["val_loss"]) == 3 and len(hist["proxy_f1"]) == 3 and finite, f"pretext history {hist}")
+    valsel = os.path.join(run_dir, "shift_pret_cnn_16_valsel.pth")
+    check(os.path.exists(ckpt) and os.path.exists(valsel), "pretext checkpoints not written")
+    res = BeatTracker(load_params(valsel), device="cuda").track_signal(click_track(8.0, 120.0, seed=2)[0])
+    check(bool(np.isfinite(res.fused_pulse).all()) and res.fused_pulse.shape == (501,), "valsel BeatTracker output")
+
+    t0 = time.perf_counter()
+    _, more = train_pretext(bank[:10], bank[10:12], dataclasses.replace(cfg, num_epochs=4), device="cuda")
+    resume_s = time.perf_counter() - t0
+    check(len(more["val_loss"]) == 1, f"resumed run ran {len(more['val_loss'])} epochs, expected 1")
+    emit("pretext", part="run", train_items=10, val_items=2, batch=cfg.batch_size, crop=PRETEXT_CROP, lr=cfg.lr,
+         epochs=cfg.num_epochs, seconds=run_s, val_loss=hist["val_loss"], ln_batch=math.log(cfg.batch_size),
+         train_loss=hist["train_loss"],
+         val_pos=hist["val_pos"], val_neg=hist["val_neg"], proxy_f1=hist["proxy_f1"], restarts=hist["restarts"],
+         resumed_epochs=len(more["val_loss"]), resumed_val_loss=more["val_loss"], resumed_proxy_f1=more["proxy_f1"],
+         resume_seconds=resume_s, valsel_beats=len(res.beat_times))
+    shutil.rmtree(run_dir)  # the twin's checkpoints and resume states: about a GB, checked above
+
+
+def _pretext_cli(bank: np.ndarray) -> None:
+    """pretext --bank as a subprocess on the card, then infer --params with
+    the checkpoint it wrote."""
+    from zeronotesamba_torch.data import audio_io
+    from zeronotesamba_torch.data.synthetic import click_track
+
+    npz, ckpt = os.path.join(OUT_DIR, "pretext_bank.npz"), os.path.join(OUT_DIR, "pretext_cli.pth")
+    wav = os.path.join(OUT_DIR, "pretext_click.wav")
+    np.savez(npz, train_bank=bank[:4], val_bank=bank[10:12])
+    audio_io.write_wav(wav, click_track(8.0, 120.0, seed=3)[0], SR)
+    cmds = {
+        "pretext": ["pretext", "--bank", npz, "--epochs", "1", "--batch-size", "16", "--checkpoint", ckpt,
+                    "--device", "cuda"],
+        "infer": ["infer", wav, "--params", ckpt, "--device", "cuda"],
+    }
+    secs, out = {}, {}
+    for name, args in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "zeronotesamba_torch", *args], cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        secs[name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI {name} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(out["pretext"]["epochs"] == 1 and math.isfinite(out["pretext"]["best_val_loss"]), f"pretext CLI {out}")
+    check(out["infer"]["n_frames"] == 501, f"infer --params output {out['infer']}")
+    emit("pretext", part="cli", seconds=secs, pretext=out["pretext"], infer_n_beats=len(out["infer"]["beat_times"]))
+    os.remove(ckpt)  # 107 MB of twin weights, checked above
+
+
+def phase_pretext(stats: dict) -> None:
+    t0 = time.perf_counter()
+    bank = _pretext_bank(stats)
+    _pretext_step_parity(bank)
+    _pretext_throughput()
+    _pretext_run(bank)
+    _pretext_cli(bank)
+    emit("pretext", part="done", seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -707,6 +998,7 @@ def main() -> None:
     phase_main_path(stats, args.trace)
     phase_throughput()
     phase_train(stats)
+    phase_pretext(stats)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         s = stats.pop(name)

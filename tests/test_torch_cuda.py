@@ -10,8 +10,12 @@ Tolerances: cascade samples 1e-5 (float32 FMA in another order), one
 octave's log magnitudes 1e-4, the log-VQT against the plain conv path 5e-4,
 pulses card vs CPU 1e-3 (cuDNN may pick FFT or Winograd sums), one train
 step card vs CPU: loss 1e-4 relative, gradients 1e-2 of each tensor's
-largest, parameters 2 lr plus their float32 rounding.
+largest, parameters 2 lr plus their float32 rounding; the staged pretext
+step at k = 2 card vs CPU at the same tolerances (its gradients with the
+CPU's max-pool and ReLU decisions replayed on the card).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -121,3 +125,60 @@ def test_beat_tracker_card_matches_cpu(cuda):
         np.testing.assert_allclose(getattr(res_g, name), getattr(res_c, name), atol=1e-3, err_msg=name)
     assert len(res_g.beat_times) == len(res_c.beat_times) > 0
     assert np.abs(res_g.beat_times - res_c.beat_times).max() <= 1 / 62.5 + 1e-9
+
+
+def test_pretext_step_card_matches_cpu(cuda):
+    """One staged zerons NT-Xent step at k = 2 (batch 4 x 128 a track),
+    dropout 0, from the same seeded TwinPretext on the card and the CPU, at
+    the train step's tolerances above. Near the NT-Xent plateau one max-pool
+    or ReLU decision flipped by rounding moves a gradient by up to about 1e-2
+    of its tensor's largest, so the gradients are held with the card's step
+    replaying the CPU's decisions (utils/parity.py); the loss and the
+    parameters come from the card's own step."""
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_staged_train_step
+    from zeronotesamba_torch.utils.parity import PiecewiseDecisions
+
+    rng = np.random.default_rng(6)
+    bank = (rng.standard_normal((3, 2, 96, 256)) * 4.0 - 6.0).astype(np.float32)
+    tracks = np.array([0, 2])
+    starts = np.stack([rng.choice(129, size=4, replace=False) for _ in tracks])
+    cfg = PretextConfig(batch_size=4, crop_frames=128, dropout_rate=0.0, lr=1e-5)
+    decisions = PiecewiseDecisions()
+    runs = {}
+    for run, dev, ctx in (("cpu", torch.device("cpu"), decisions.record), ("cuda", cuda, contextlib.nullcontext),
+                          ("shared", cuda, decisions.replay)):
+        state = init_pretext_state(cfg, 3, device=dev)
+        with ctx():
+            state, loss, _, _ = make_staged_train_step(cfg)(state, torch.tensor(bank, device=dev), tracks, starts,
+                                                            None)
+        runs[run] = (loss.item(), {k: v.detach().cpu() for k, v in state.model.named_parameters()},
+                     {k: v.grad.cpu() for k, v in state.model.named_parameters()})
+    (lg, pg, _), (lc, pc, gc), (_, _, gs) = runs["cuda"], runs["cpu"], runs["shared"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k in pc:
+        torch.testing.assert_close(gs[k], gc[k], rtol=0, atol=1e-2 * gc[k].abs().max().item(), msg=k)
+        torch.testing.assert_close(pg[k], pc[k], rtol=2 * torch.finfo(torch.float32).eps, atol=2 * cfg.lr)
+
+
+def test_pretext_banks_launch_each_kernel_once_a_log_vqt(cuda, tmp_path):
+    """A stem-bank item is two generate_xqt calls (anchor, positive), a CLMR
+    item one: one cascade and one octave launch each."""
+    from zeronotesamba_torch.data import audio_io
+    from zeronotesamba_torch.data.fma import gen_clmr_bank
+    from zeronotesamba_torch.data.synthetic import percussive_pair
+    from zeronotesamba_torch.experiments.pretext_driver import build_bank_from_stem_root
+
+    stems, mixes = tmp_path / "stems", tmp_path / "mixes"
+    mixes.mkdir()
+    for i in range(3):
+        anchor, positive, _ = percussive_pair(3.0, 100.0 + 10 * i, seed=i)
+        (stems / f"t{i}").mkdir(parents=True)
+        audio_io.write_wav(str(stems / f"t{i}" / "drums.wav"), positive, 16000)
+        audio_io.write_wav(str(stems / f"t{i}" / "other.wav"), anchor, 16000)
+        audio_io.write_wav(str(mixes / f"m{i}.wav"), anchor + positive, 16000)
+    for build, per_item in ((lambda: build_bank_from_stem_root(str(stems), 3, clip_len_s=2.0, device="cuda"), 2),
+                            (lambda: gen_clmr_bank(str(mixes), 3, clip_frames=64, clip_len_s=2.0, device="cuda"), 1)):
+        before = dict(vk.LAUNCHES)
+        bank = build()
+        assert len(bank) == 3 and np.isfinite(bank).all()
+        assert vk.LAUNCHES == {k: before[k] + per_item * 3 for k in before}

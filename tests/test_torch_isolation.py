@@ -66,12 +66,20 @@ def test_importing_every_module_leaves_jax_out():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
 
 
-def test_entry_points_need_a_card_unless_asked_for_cpu():
+def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the CUDA default is valid here")
+    from zeronotesamba_torch import cli
+    from zeronotesamba_torch.data.fma import gen_clmr_bank, mine_stems
+    from zeronotesamba_torch.experiments.pretext_driver import (
+        PretextRunConfig,
+        build_bank_from_stem_root,
+        train_pretext,
+    )
     from zeronotesamba_torch.infer import BeatTracker
     from zeronotesamba_torch.ops.hpss import hpss_host
     from zeronotesamba_torch.ops.vqt import generate_xqt
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state
 
     sig = np.zeros(4000, np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -81,6 +89,17 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="cuda"):
         hpss_host(sig)
     assert generate_xqt(sig, 16000, "vqt", device="cpu").shape == (96, 16)
+
+    bank = np.zeros((2, 2, 96, 16), np.float32)
+    np.savez(str(tmp_path / "bank.npz"), train_bank=bank[:1], val_bank=bank[1:])
+    for call in (lambda: train_pretext(bank[:1], bank[1:], PretextRunConfig(batch_size=2, crop_frames=8)),
+                 lambda: init_pretext_state(PretextConfig(), 0),
+                 lambda: build_bank_from_stem_root(str(tmp_path), 1),
+                 lambda: mine_stems(str(tmp_path), str(tmp_path / "out")),
+                 lambda: gen_clmr_bank(str(tmp_path), 1),
+                 lambda: cli.main(["pretext", "--bank", str(tmp_path / "bank.npz"), "--epochs", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):

@@ -4,6 +4,8 @@ Subcommands, each with the JAX CLI's flags plus ``--device`` (default
 ``cuda``; ``cpu`` to run on the CPU):
     build-data   ETL a dataset directory into an npz record cache
     beat         k-fold CV beat-tracking experiment on a cached dataset
+    pretext      self-supervised contrastive pretraining -> a .pth in the
+                 reference key names (models/shift_pret_cnn_16.pth)
     infer        one file -> pulse + beats (JSON on stdout)
 
 The JAX package's other subcommands are not ported yet (ROADMAP "Modules to
@@ -51,6 +53,28 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
+    pt = sub.add_parser("pretext", help="contrastive pretraining")
+    pt.add_argument("--stem-root", default=None, help="new_data/-style stem dir (10%% kept for validation)")
+    pt.add_argument("--bank", default=None, help="prebuilt .npz bank (train_bank/val_bank arrays)")
+    pt.add_argument("--task", default="zerons", choices=["zerons", "clmr"])
+    pt.add_argument("--epochs", type=int, default=250)
+    pt.add_argument("--batch-size", type=int, default=16)
+    pt.add_argument("--checkpoint", default="models/shift_pret_cnn_16.pth",
+                    help="best params path, .pth or .npz, in the reference key names")
+    pt.add_argument("--data-parallel", action="store_true",
+                    help="not ported yet (ROADMAP 'Modules to port', item 10); raises")
+    pt.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="conv compute dtype (params and loss stay float32)")
+    pt.add_argument("--selection", default="val_loss", choices=["val_loss", "proxy_f1"],
+                    help="checkpoint selection: NT-Xent val loss (reference parity) "
+                         "or zero-shot beat F1 on a labelled proxy set")
+    pt.add_argument("--proxy-data", default=None, help="npz dataset cache for --selection proxy_f1")
+    pt.add_argument("--freq-s2d", action="store_true", help="accepted for the JAX CLI's flags; no effect here")
+    pt.add_argument("--steps-per-call", type=int, default=1,
+                    help="accepted for the JAX CLI's flags; no effect here (make_staged_train_step)")
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
     i = sub.add_parser("infer", help="track one audio file")
     i.add_argument("audio", help="wav file")
     i.add_argument("--params", default=None, help="state dict (.pth or .npz) in the reference key names")
@@ -92,6 +116,39 @@ def main(argv=None):
         params = load_state_dict_file(args.params) if args.params else None
         results = run_beat_experiment(ds, cfg, init_params=params, device=args.device)
         _dump(args.out, summarize(results))
+
+    elif args.cmd == "pretext":
+        import numpy as np
+
+        from zeronotesamba_torch.experiments.pretext_driver import (
+            PretextRunConfig, build_bank_from_stem_root, train_pretext,
+        )
+        from zeronotesamba_torch.train.pretext import MESH_NOT_PORTED
+
+        if args.data_parallel:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        if args.bank:
+            with np.load(args.bank) as z:
+                train_bank, val_bank = z["train_bank"], z["val_bank"]
+        elif args.stem_root:
+            bank = build_bank_from_stem_root(args.stem_root, n_samples=10**9, seed=args.seed, device=args.device)
+            n_val = max(1, len(bank) // 10)
+            val_bank, train_bank = bank[:n_val], bank[n_val:]
+        else:
+            raise SystemExit("need --bank or --stem-root")
+        proxy_ds = None
+        if args.proxy_data:
+            from zeronotesamba_torch.data.datasets import BeatDataset
+
+            proxy_ds = BeatDataset.load(args.proxy_data)
+        cfg = PretextRunConfig(task=args.task, num_epochs=args.epochs, batch_size=args.batch_size,
+                               seed=args.seed, checkpoint_path=args.checkpoint,
+                               compute_dtype=args.dtype, selection=args.selection,
+                               proxy_dataset=proxy_ds, steps_per_call=args.steps_per_call,
+                               freq_s2d=(1,) if args.freq_s2d else ())
+        _, hist = train_pretext(train_bank, val_bank, cfg, device=args.device)
+        print(json.dumps({"checkpoint": args.checkpoint, "epochs": len(hist["val_loss"]),
+                          "best_val_loss": min(hist["val_loss"]), "restarts": hist["restarts"]}))
 
     elif args.cmd == "infer":
         from zeronotesamba_torch.infer import BeatTracker

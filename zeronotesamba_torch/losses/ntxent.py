@@ -27,13 +27,15 @@ def _normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def ntxent(
     anchors: torch.Tensor, positives: torch.Tensor, temperature: float = 0.25
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, D) x (B, D) -> (mean loss, mean pos cosine, mean neg cosine)."""
+    """(..., B, D) x (..., B, D) -> (mean loss, mean pos cosine, mean neg
+    cosine), each of shape (...): one NT-Xent per (B, D) block, whose
+    negatives are only that block's other positives."""
     a = _normalize(anchors.float())
     p = _normalize(positives.float())
-    sim = a @ p.T  # (B, B) cosine similarities
+    sim = a @ p.transpose(-1, -2)  # (..., B, B) cosine similarities
     logits = sim / temperature
-    losses = -(torch.diagonal(logits) - torch.logsumexp(logits, dim=1))
-    b = sim.shape[0]
-    pos_cos = torch.diagonal(sim).mean()
-    neg_cos = (sim.sum() - torch.diagonal(sim).sum()) / (b * (b - 1))
-    return losses.mean(), pos_cos, neg_cos
+    diag = torch.diagonal(sim, dim1=-2, dim2=-1)
+    losses = torch.logsumexp(logits, dim=-1) - diag / temperature
+    b = sim.shape[-1]
+    neg_cos = (sim.sum(dim=(-2, -1)) - diag.sum(dim=-1)) / (b * (b - 1))
+    return losses.mean(dim=-1), diag.mean(dim=-1), neg_cos

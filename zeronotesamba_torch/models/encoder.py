@@ -60,14 +60,16 @@ def _he_normal_(w: torch.Tensor, generator: torch.Generator | None) -> None:
     """Flax ``he_normal``: truncated normal at +-2 sd, variance 2/fan_in."""
     fan_in = w[0].numel()
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978  # sd of N(0,1) truncated to [-2, 2]
-    # Redraw the draws outside [-2, 2]: exact, and far faster than
-    # nn.init.trunc_normal_'s inverse-CDF sampling at these sizes.
-    z = torch.randn(w.shape, generator=generator)
-    out = z.abs() > 2.0
-    while out.any():
-        z[out] = torch.randn(int(out.sum()), generator=generator)
-        out = z.abs() > 2.0
-    w.copy_(z * std)
+    # Redraw the draws outside [-2, 2], in index order, until none is left:
+    # exact, and far faster than nn.init.trunc_normal_'s inverse-CDF
+    # sampling at these sizes. Each round touches only the cells still out.
+    z = torch.randn(w.numel(), generator=generator)
+    out = (z.abs() > 2.0).nonzero().squeeze(1)
+    while out.numel():
+        redraw = torch.randn(out.numel(), generator=generator)
+        z[out] = redraw
+        out = out[redraw.abs() > 2.0]
+    w.copy_(z.view(w.shape) * std)
 
 
 def _torch_uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator | None) -> None:

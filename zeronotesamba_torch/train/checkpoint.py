@@ -79,6 +79,8 @@ def save_params(path: str, model: torch.nn.Module):
     (torch.save) or an ``.npz``, by the path's suffix."""
     sd = reference_state_dict(model)
     path = os.path.abspath(path)
+    if path.endswith((".npz", ".pth")):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
     if path.endswith(".npz"):
         np.savez(path, **{k: v.numpy() for k, v in sd.items()})
     elif path.endswith(".pth"):

@@ -66,3 +66,9 @@ def pretext_learning_rate(task: str = "zerons", lr: float | None = None) -> floa
     if lr is None:
         lr = 1e-6 if task == "zerons" else 1e-5
     return lr
+
+
+def pretext_optimizer(model: nn.Module, task: str = "zerons", lr: float | None = None) -> torch.optim.Adam:
+    """Reference pretext optimizer (pretext.py:202,208): Adam over every
+    parameter at ``pretext_learning_rate(task, lr)``."""
+    return torch.optim.Adam(model.parameters(), lr=pretext_learning_rate(task, lr), betas=ADAM_BETAS, eps=ADAM_EPS)
