@@ -6,28 +6,39 @@
 Phases, each printing one JSON line:
 
 1. device     -- refuse to run without CUDA; card name and power limit; TF32 off.
-2. build      -- compile the kernels from csrc/ with nvcc (parallel, one per source).
+2. build      -- compile the kernels from csrc/ with nvcc (parallel, one per source),
+                 and the native DBN's C++ source with g++ beside them.
 3. kernels    -- each kernel against its plain PyTorch version on the card at the
                  main path's shapes (and batch 2 x 10 s, 32 x 10 s, 1 x 0.5 s, and
                  a ragged 3 x 7.3 s), with times: kernel, plain version, one
                  library call, and the card's bound.
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
-                 the CPU with the same seeded weights; launch counters; the CLI.
-5. throughput -- log-VQT + FusedDownstream on batch 32 x 10 s, float32 and bf16.
-6. train      -- the supervised training path, one JSON line per part: the ETL
+                 the CPU with the same seeded weights; launch counters; the DBN
+                 backend (native C++) and its numpy twin; the librosa decoder;
+                 Ellis DP on the raw clicks; the CLI.
+5. decode     -- the batched DBN Viterbi kernel on its path: one padded batch of
+                 20 ragged songs through decode_beats_batch_device, launches
+                 counted, the kernel against its plain version exactly, beats
+                 against the float64 DBN, native against numpy, the online DBN.
+6. throughput -- log-VQT + FusedDownstream on batch 32 x 10 s, float32 and bf16.
+7. train      -- the supervised training path, one JSON line per part: the ETL
                  (build_synthetic, 16 songs x 12 s, on the card, with its kernel
                  launches counted and two songs held against the CPU), one
                  train_step card vs CPU, train-step times at batch 8 x 768
                  frames in float32 and bf16, the 4-fold experiment (mean
                  held-out F1 >= 0.9, class-balanced BCE), and the
                  build-data / beat CLI.
-7. pretext    -- self-supervised pretext training, one JSON line per part: the
+8. pretext    -- self-supervised pretext training, one JSON line per part: the
                  banks (mine_stems with HPSS on 12 synthetic 12 s mixes and a
                  tone, the stem bank and the CLMR bank on the card, launches
                  counted, two items held against the CPU), one staged k = 2
                  NT-Xent step card vs CPU, step times at batch 16 x 313 in
                  float32 and bf16, a 3-epoch train_pretext with proxy-F1
                  selection and one resumed epoch, and the pretext / infer CLI.
+9. evaluate   -- the evaluation path: one BockTCN train step card vs CPU, its step
+                 time at batch 8 x 768, 20 steps that must lower the loss, and
+                 the beat --status bock / cross / few-shot / measures /
+                 old-school / track-dir / resave CLI as subprocesses.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -100,10 +111,17 @@ PRETEXT_FRAMES = 626
 # the rest in 17% to 37% of their frames after HPSS, under the default 0.3.
 PRETEXT_LOWER_P = 0.1
 PRETEXT_K2_RTOL = 1e-5  # the k = 2 step vs the mean of its tracks' NT-Xent, on the card
+OLD_SCHOOL_F1_MIN = 0.8  # Ellis DP on a raw click track (tests/test_decoders.py)
 KERNEL_SOURCES = {
     "cascade": ("zeronotesamba_torch/csrc/vqt_cascade.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:157"),
     "octave": ("zeronotesamba_torch/csrc/vqt_octave.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:32"),
+    "viterbi": ("zeronotesamba_torch/csrc/dbn_viterbi.cu", "zeronotesamba_tpu/decode/dbn_jax.py:23"),
 }
+# Golden activations whose device (float32) beats must equal the float64
+# decode's; on the others (noise, near-silence, short, seeded-weight pulses)
+# float32 rounding may pick another path, so their differences are reported.
+DECODE_GATED = ("clean_", "jitter_", "weak_", "ramp_")
+ONLINE_F1_MIN = 0.9  # online vs offline DBN on the clean activations (tests/test_dbn_online.py)
 
 
 def out_line(line: str) -> None:
@@ -215,12 +233,27 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Every CUDA source with its own nvcc, all started together, and the
+    native DBN's C++ source with g++ beside them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from zeronotesamba_torch.decode import dbn_native
     from zeronotesamba_torch.ops.cuda import build
 
-    secs = build.build_all()
+    def native() -> float:
+        t0 = time.perf_counter()
+        dbn_native.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        native_s = pool.submit(native)
+        secs = build.build_all()
+        native_s = native_s.result()
     ptxas = {n: [ln.strip() for ln in log.splitlines() if any(w in ln for w in ("registers", "smem", "spill"))]
              for n, log in build.build_logs().items()}
-    emit("build", seconds=secs, dir=os.path.relpath(build.build_dir(), ROOT), ptxas=ptxas)
+    emit("build", seconds=secs, dir=os.path.relpath(build.build_dir(), ROOT), ptxas=ptxas,
+         native_dbn=dict(seconds=native_s, library=os.path.relpath(dbn_native.library_path(), ROOT),
+                         flags=list(dbn_native.CXX_FLAGS)))
 
 
 def _signal(batch: int, seconds: float, seed: int) -> torch.Tensor:
@@ -344,6 +377,7 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
     device's busy time over one whole warm call from the profiler."""
     from zeronotesamba_torch.data.separation import separate
     from zeronotesamba_torch.decode import decode
+    from zeronotesamba_torch.decode.dbn import decode_beats
     from zeronotesamba_torch.ops.filterbank import XQTParams
     from zeronotesamba_torch.ops.vqt import best_log_xqt
 
@@ -360,7 +394,11 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
         vqts, out["log_vqt_s"] = timed(lambda: best_log_xqt(
             torch.as_tensor(np.stack([anc, pos]), device=tracker.device), XQTParams()))
         fused, out["encoders_s"] = timed(lambda: tracker.model(vqts[0:1, None], vqts[1:2, None]).cpu().numpy()[0])
-    _, out["dbn_decode_s"] = timed(lambda: decode(fused, "dbn"))
+    # The DBN as track_signal runs it (native C++), and the numpy Viterbi on
+    # the same pulse: the same beats.
+    native, out["dbn_decode_s"] = timed(lambda: decode(fused, "dbn"))
+    plain, out["dbn_decode_numpy_s"] = timed(lambda: decode_beats(fused, use_native=False))
+    check(np.array_equal(native, plain), "native and numpy DBN beats differ on the main path's pulse")
     if not trace:
         return out
     from torch.profiler import ProfilerActivity, profile
@@ -380,25 +418,34 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
 def phase_main_path(stats: dict, trace: bool) -> None:
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
+    from zeronotesamba_torch.decode import dbn
+    from zeronotesamba_torch.decode.ellis import beat_track_signal
     from zeronotesamba_torch.infer import BeatTracker
+    from zeronotesamba_torch.metrics.beat import evaluate_beats
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
     from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
     from zeronotesamba_torch.ops.hpss import hpss_host
 
-    sig, _ = click_track(30.0, 120.0, seed=0)
+    sig, clicks = click_track(30.0, 120.0, seed=0)
     gpu = BeatTracker(seed=0, device="cuda")
     cpu = BeatTracker(seed=0, device="cpu")
     for k, v in gpu.state_dict().items():
         check(torch.equal(v, cpu.state_dict()[k]), f"seeded weights differ at {k}")
 
-    for key in vk.LAUNCHES:
-        vk.LAUNCHES[key] = 0
+    for counts in (vk.LAUNCHES, dbn_kernel.LAUNCHES, dbn.BACKEND_CALLS):
+        for key in counts:
+            counts[key] = 0
     t0 = time.perf_counter()
     res_g = gpu.track_signal(sig, separation="hpss", decoder="dbn")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(vk.LAUNCHES)
-    # One log_xqt_fused call per track_signal: one cascade and one octave launch.
-    check(launches == {"cascade": 1, "octave": 1}, f"main path launches {launches}, expected one of each")
+    launches = {**vk.LAUNCHES, **dbn_kernel.LAUNCHES}
+    backends = dict(dbn.BACKEND_CALLS)
+    # One log_xqt_fused call per track_signal: one cascade and one octave
+    # launch; the DBN decodes one song on the host, in C++.
+    check(launches == {"cascade": 1, "octave": 1, "viterbi": 0}, f"main path launches {launches}")
+    dbn_backend = "native" if backends == {"native": 1, "numpy": 0} else f"not native: {backends}"
+    check(dbn_backend == "native", f"main path DBN backend {backends}, expected one native decode")
     stats["cascade"]["launches"] = launches["cascade"]
     stats["octave"]["launches"] = launches["octave"]
 
@@ -423,6 +470,14 @@ def phase_main_path(stats: dict, trace: bool) -> None:
         check(errs[f] <= PULSE_ATOL, f"{f} card vs CPU max |err| {errs[f]} > {PULSE_ATOL}")
     _beats_match(res_g.beat_times, res_c.beat_times, "card vs CPU")
     check(len(res_g.beat_times) > 0, "no beats decoded")
+    # The Ellis DP decoder on the same pulses, card vs CPU; and the old-school
+    # route (Ellis DP on the raw click track) against the clicks.
+    lib_g = gpu.track_signal(sig, separation="hpss", decoder="librosa").beat_times
+    lib_c = cpu.track_signal(sig, separation="hpss", decoder="librosa").beat_times
+    _beats_match(lib_g, lib_c, "librosa decoder card vs CPU")
+    check(len(lib_g) > 0, "no beats from the librosa decoder")
+    old_school_f1 = float(evaluate_beats(clicks, beat_track_signal(sig))[0])
+    check(old_school_f1 >= OLD_SCHOOL_F1_MIN, f"Ellis DP on the click track F1 {old_school_f1} < {OLD_SCHOOL_F1_MIN}")
 
     # The CLI on the card, on a written wav, against the same tracker in-process.
     wav = os.path.join(OUT_DIR, "click_12s.wav")
@@ -440,10 +495,12 @@ def phase_main_path(stats: dict, trace: bool) -> None:
     check(payload["n_frames"] == ref.fused_pulse.shape[0], "CLI n_frames")
     _beats_match(np.asarray(payload["beat_times"]), ref.beat_times, "CLI vs in-process")
 
-    emit("main_path", clip_s=30.0, n_frames=n_frames, launches=launches, max_abs_err_card_vs_cpu=errs,
-         n_beats=len(res_g.beat_times), card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
+    emit("main_path", clip_s=30.0, n_frames=n_frames, launches=launches, dbn_backend=dbn_backend,
+         max_abs_err_card_vs_cpu=errs, n_beats=len(res_g.beat_times), librosa_n_beats=len(lib_g),
+         old_school_f1=old_school_f1, card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
          card_breakdown=_stage_breakdown(gpu, sig, trace),
          cli=dict(seconds=cli_s, n_frames=payload["n_frames"], n_beats=len(payload["beat_times"])))
+    return res_g.fused_pulse
 
 
 def encoder_flops(n_frames: int) -> float:
@@ -540,7 +597,7 @@ def _etl(stats: dict) -> tuple:
     n_calls = sum(r.vqt.shape[0] for r in ds)
     check(launches == {"cascade": n_calls, "octave": n_calls},
           f"ETL launches {launches}, expected {n_calls} of each (one per generate_xqt call)")
-    for kname in KERNEL_SOURCES:
+    for kname in launches:  # the log-VQT kernels
         stats[kname]["etl_launches_per_song"] = launches[kname] / len(ds)
 
     # Near-empty cells (log |X| <= -7 in a float64 evaluation) hold float32
@@ -712,7 +769,7 @@ def _train_cli(ds) -> None:
     emit("train", part="cli", seconds=secs, n_songs=len(cache), max_abs_err_vqt_vs_in_process=vqt_err, results=res)
 
 
-def phase_train(stats: dict) -> None:
+def phase_train(stats: dict):
     t0 = time.perf_counter()
     ds = _etl(stats)
     _train_step_parity(ds)
@@ -720,6 +777,7 @@ def phase_train(stats: dict) -> None:
     _experiment(ds)
     _train_cli(ds)
     emit("train", part="done", seconds=time.perf_counter() - t0)
+    return ds
 
 
 def _pretext_bank(stats: dict) -> tuple:
@@ -778,7 +836,7 @@ def _pretext_bank(stats: dict) -> tuple:
     check(stem_bank.shape == (PRETEXT_TRACKS, 2, 96, PRETEXT_FRAMES), f"stem bank shape {stem_bank.shape}")
     check(counts["clmr"]["shape"] == [PRETEXT_TRACKS + 1, 2, 96, PRETEXT_CROP], f"CLMR bank {counts['clmr']}")
     check(bool(np.isfinite(stem_bank).all()), "stem bank not finite")
-    for kname in KERNEL_SOURCES:
+    for kname in vk.LAUNCHES:  # the log-VQT kernels
         stats[kname]["pretext_launches_per_bank_item"] = counts["stem"]["launches"][kname] / len(stem_bank)
         stats[kname]["pretext_launches_per_clmr_item"] = counts["clmr"]["launches"][kname] / counts["clmr"]["items"]
 
@@ -985,6 +1043,269 @@ def phase_pretext(stats: dict) -> None:
     emit("pretext", part="done", seconds=time.perf_counter() - t0)
 
 
+def _decode_batch(pulse: np.ndarray):
+    """The decode phase's ragged batch: every golden activation (187 to
+    1,250 frames), the main path's fused pulse (1,876), that pulse tiled to
+    3,750 frames, and a song of no frames, zero-padded to 3,750."""
+    gold = np.load(os.path.join(ROOT, "tests", "fixtures", "dbn_golden.npz"))
+    songs = {k[len("act_"):]: gold[k].astype(np.float64) for k in sorted(gold.files) if k.startswith("act_")}
+    songs["main_path_pulse"] = np.asarray(pulse, np.float64)
+    songs["main_path_pulse_x2"] = np.tile(songs["main_path_pulse"], 2)[:3750]
+    songs["empty"] = np.zeros(0)
+    t_pad = max(len(a) for a in songs.values())
+    acts = np.stack([np.pad(a, (0, t_pad - len(a))) for a in songs.values()])
+    return list(songs), acts, [len(a) for a in songs.values()], gold
+
+
+def phase_decode(stats: dict, pulse: np.ndarray) -> None:
+    """The batched DBN Viterbi on its path: decode_beats_batch_device on the
+    card over one padded batch of ragged songs, with its launches counted;
+    the kernel against its plain version on the card, exactly; each song's
+    beats against the float64 native and numpy decodes; the native against
+    the numpy DBN and the golden beats; the online DBN against the offline."""
+    from zeronotesamba_torch.decode import dbn_device
+    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, decode_beats
+    from zeronotesamba_torch.decode.dbn_online import decode_beats_online
+    from zeronotesamba_torch.metrics.beat import f_measure
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+
+    names, acts, lengths, gold = _decode_batch(pulse)
+    cfg = DBNBeatDecoderConfig()
+    for key in dbn_kernel.LAUNCHES:
+        dbn_kernel.LAUNCHES[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_beats = dbn_device.decode_beats_batch_device(acts, lengths, cfg, device="cuda")
+    device_s = time.perf_counter() - t0
+    launches = dict(dbn_kernel.LAUNCHES)
+    check(launches == {"viterbi": 1}, f"decode launches {launches}, expected one viterbi launch a batch")
+    stats["viterbi"]["launches"] = launches["viterbi"]
+
+    # The kernel against its plain version, on the card, on the same inputs.
+    masked = acts.copy()
+    for b, nf in enumerate(lengths):
+        masked[b, nf:] = 0.0
+    la, lna = (torch.tensor(x.astype(np.float32), device="cuda") for x in dbn_device._observations(masked, cfg))
+    space = dbn_device._space(cfg, torch.device("cuda"))
+    got = dbn_kernel.viterbi_forward(la, lna, space)
+    t0 = time.perf_counter()
+    ref = dbn_kernel.viterbi_forward_plain(la, lna, space)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for what, g, r in zip(("v_final", "fc", "best"), got, ref):
+        check(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r),
+              f"viterbi kernel {what} differs from its plain version")
+    err = float((got[0] - ref[0]).abs().max())
+
+    # Each song's beats against the float64 decodes, native and numpy; the
+    # native DBN against the numpy one and the golden beats.
+    per_song, t_native, t_numpy = {}, 0.0, 0.0
+    for name, act, nf, beats in zip(names, acts, lengths, device_beats):
+        act = act[:nf]
+        t0 = time.perf_counter()
+        native = decode_beats(act, cfg)
+        t1 = time.perf_counter()
+        plain = decode_beats(act, cfg, use_native=False)
+        t_native, t_numpy = t_native + t1 - t0, t_numpy + time.perf_counter() - t1
+        check(np.array_equal(native, plain), f"{name}: native and numpy DBN beats differ")
+        same = len(beats) == len(native) and np.array_equal(beats, native)
+        diff = int(np.sum(~np.isin(np.round(beats * FPS), np.round(native * FPS)))
+                   + np.sum(~np.isin(np.round(native * FPS), np.round(beats * FPS))))
+        per_song[name] = dict(frames=len(act), beats=len(native), device_equal=same, beats_not_shared=diff)
+        if name.startswith(DECODE_GATED):
+            check(same, f"{name}: device beats differ from the float64 DBN's ({diff} not shared)")
+        if f"act_{name}" in gold.files:
+            for correct, tag in ((True, "c"), (False, "u")):
+                c = dataclasses.replace(cfg, correct=correct)
+                nat = decode_beats(act, c)
+                check(np.array_equal(nat, decode_beats(act, c, use_native=False)), f"{name}: native != numpy")
+                check(np.allclose(nat, gold[f"beats_{tag}_{name}"], atol=1e-9), f"{name}: golden beats differ")
+    online = {}
+    for name in names:
+        if name.startswith("clean_"):
+            act = gold[f"act_{name}"].astype(np.float64)
+            on, off = decode_beats_online(act), decode_beats(act, cfg)
+            online[name] = float(f_measure(off[off > 3], on[on > 3]))  # after the 3 s burn-in
+            check(online[name] >= ONLINE_F1_MIN, f"online DBN F1 on {name} {online[name]} < {ONLINE_F1_MIN}")
+
+    # Times and the bound. Each song-frame: n_int^2 candidate adds and as many
+    # compares, n_states observation adds and as many argmax compares.
+    batch, t_pad = acts.shape
+    n_int, n_states = space.n_int, space.n_states
+    ms = device_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5, reps=3)
+    nbytes = 4.0 * 2 * batch * t_pad + 4.0 * n_int * n_int + 8.0 * n_int + n_states \
+        + 2.0 * batch * t_pad * n_int + 4.0 * batch * t_pad + 4.0 * batch * n_states
+    b_ms, b_by = bound(nbytes, 2.0 * (n_int * n_int + n_states) * batch * t_pad)
+    stats["viterbi"].update(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None, event_ms=time_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5,
+                                                              warmup=1))
+    n_songs = sum(1 for n in lengths if n > 0)
+    emit("decode", batch=batch, t_pad=t_pad, lengths=lengths, launches=launches, kernel_ms=ms, plain_ms=plain_s * 1e3,
+         bound_ms=b_ms, bound_by=b_by, serial_frames=t_pad, max_abs_err_v_final=err,
+         host_s_per_song=dict(numpy=t_numpy / n_songs, native=t_native / n_songs, device_batch=device_s / n_songs),
+         songs=per_song, online_f1=online)
+
+
+def _bock_parity(ds) -> None:
+    """One status='bock' train_step at dropout off on the card and on the
+    CPU from the same seeded BockTCN, on two staged songs, at the train
+    step's tolerances."""
+    from zeronotesamba_torch.train.supervised import StagedDataset, SupervisedConfig, init_state, train_step
+
+    cfg = SupervisedConfig(status="bock", lr=1e-3, batch_size=2, bucket_frames=PARITY_FRAMES)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        staged = StagedDataset(ds.records[:2], cfg.bucket_frames, device=dev)
+        (t, rows), = staged.plan(ds.names[:2], 2)
+        b = staged.buckets[t]
+        state = init_state(cfg, ds[0], 0, device=dev)
+        state, loss, _ = train_step(state, b.vqt, b.pulse, b.mask, None, cfg.status)
+        runs[dev] = dict(loss=float(loss), params={k: v.detach().cpu() for k, v in state.model.named_parameters()},
+                         grads={k: v.grad.cpu() for k, v in state.model.named_parameters()})
+    g, c = runs["cuda"], runs["cpu"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    eps = torch.finfo(torch.float32).eps
+    param_excess = max(((g["params"][k] - c["params"][k]).abs() - 2 * cfg.lr - 2 * eps * c["params"][k].abs())
+                       .max().item() for k in c["params"])
+    grad_rel = {k: ((g["grads"][k] - c["grads"][k]).abs().max() / c["grads"][k].abs().max()).item()
+                for k in c["grads"]}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= PARITY_LOSS_RTOL, f"bock train_step loss card {g['loss']} vs CPU {c['loss']}")
+    check(param_excess <= 0.0, f"bock train_step params card vs CPU exceed 2 lr by {param_excess}")
+    check(grad_rel[worst] <= PARITY_GRAD_REL, f"bock gradient of {worst} card vs CPU {grad_rel[worst]} of its largest")
+    emit("evaluate", part="bock_step_parity", batch=2, frames=PARITY_FRAMES, lr=cfg.lr, loss_card=g["loss"],
+         loss_cpu=c["loss"], loss_rel_err=loss_rel, max_grad_err_of_tensor_max=grad_rel[worst], worst_grad=worst,
+         max_param_excess_over_2lr=param_excess)
+
+
+def _bock_steps() -> None:
+    """BockTCN train steps on the card at batch 8 x 768 in float32: the
+    median time of 6 after 2 warm-up over distinct batches; then 20 steps on
+    one batch, after which its loss must have fallen."""
+    from zeronotesamba_torch.train.supervised import SupervisedConfig, dropout_generator, init_state, train_step
+
+    batch, frames, steps, warmup, distinct = 8, 768, 6, 2, 3
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    data = [torch.randn(batch, 1, 96, frames, device="cuda", generator=gen) * 4.0 - 6.0 for _ in range(distinct)]
+    pulse = (torch.rand(batch, frames, device="cuda", generator=gen) < 0.05).float()
+    mask = torch.ones(batch, frames, device="cuda")
+    cfg = SupervisedConfig(status="bock", lr=1e-3, bucket_frames=frames)
+    state = init_state(cfg, None, 0, device="cuda")
+    times = []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss, _ = train_step(state, data[i % distinct], pulse, mask, dropout_generator(0, i, "cuda"), "bock")
+        check(math.isfinite(float(loss)), "bock step loss not finite")  # the read syncs
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    state = init_state(cfg, None, 1, device="cuda")
+    losses = [float(train_step(state, data[0], pulse, mask, dropout_generator(1, i, "cuda"), "bock")[1])
+              for i in range(20)]
+    check(losses[-1] < losses[0], f"20 bock steps on one batch did not lower its loss: {losses[0]} -> {losses[-1]}")
+    emit("evaluate", part="bock_throughput", dtype="float32", batch=batch, frames=frames, steps=steps,
+         ms_per_step=statistics.median(times), step_ms=times, fit_losses=[losses[0], losses[-1]])
+
+
+def _cli(args: list, timeout: int = 300) -> tuple:
+    """One CLI subprocess on the card: (seconds, stdout)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "zeronotesamba_torch", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI {args[0]} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return secs, proc.stdout
+
+
+def _evaluate_cli(ds) -> None:
+    """The evaluation entry points as subprocesses on the card, on the train
+    phase's songs, the pretext phase's bank and three click-track wavs."""
+    import shutil
+
+    from zeronotesamba_torch.data import audio_io
+    from zeronotesamba_torch.data.datasets import BeatDataset, SongRecord
+    from zeronotesamba_torch.data.synthetic import click_track
+    from zeronotesamba_torch.infer import BeatTracker
+
+    root = os.path.join(OUT_DIR, "evaluate")
+    shutil.rmtree(root, ignore_errors=True)
+    train_dir, test_dir, all_dir, wav_dir = (os.path.join(root, d) for d in ("train8", "test8", "all16", "wavs"))
+    BeatDataset(ds.records[:8]).save(train_dir)
+    BeatDataset(ds.records[8:]).save(test_dir)
+    ds.save(all_dir)
+    os.makedirs(wav_dir)
+    records = []
+    for i, bpm in enumerate((96.0, 120.0, 150.0)):
+        sig, beats = click_track(12.0, bpm, seed=40 + i)
+        name = f"click_{i}.wav"
+        audio_io.write_wav(os.path.join(wav_dir, name), sig, SR)
+        records.append(SongRecord(name, np.zeros((1, 96, 8), np.float32), np.zeros(8), np.zeros(8), beats,
+                                  np.zeros(0)))
+    BeatDataset(records).save(os.path.join(root, "clicks"))
+    out = {n: os.path.join(root, n + ".json") for n in ("beat", "cross", "few", "dbn", "librosa")}
+    meas = os.path.join(root, "measures")
+    bank = os.path.join(OUT_DIR, "pretext_bank.npz")  # the pretext phase's bank
+    secs, results = {}, {}
+    runs = {
+        "beat_bock": ["beat", "--data", os.path.join(OUT_DIR, "synth4"), "--status", "bock", "--folds", "2",
+                      "--max-epochs", "2", "--lr", "1e-3", "--out", out["beat"]],
+        "cross": ["cross", "--train-data", train_dir, "--test-data", test_dir, "--folds", "2", "--max-epochs", "3",
+                  "--lr", "2e-4", "--out", out["cross"]],
+        "few_shot": ["few-shot", "--data", all_dir, "--sizes", "1,2", "--repeats", "1", "--max-epochs", "3",
+                     "--lr", "2e-4", "--out", out["few"]],
+        "measures_vanilla": ["measures", "--data", all_dir, "--status", "van", "--model", "vanilla", "--out", meas],
+        "measures_bock": ["measures", "--data", all_dir, "--status", "bock", "--model", "bock", "--out", meas],
+        "measures_anchor": ["measures", "--data", all_dir, "--status", "ros", "--stream", "anchor", "--out", meas],
+        "measures_std": ["measures", "--status", "std", "--bank", bank, "--out", meas],
+        "old_school": ["old-school", "--data", os.path.join(root, "clicks"), "--audio-root", wav_dir],
+        "track_dir_dbn": ["track-dir", wav_dir, "--decoder", "dbn", "--out", out["dbn"]],
+        "track_dir_librosa": ["track-dir", wav_dir, "--decoder", "librosa", "--out", out["librosa"]],
+        "resave": ["resave", wav_dir, "--out", os.path.join(root, "wavs44k"), "--rate", "44100"],
+    }
+    for name, args in runs.items():
+        if args[0] not in ("old-school", "resave"):  # host-only subcommands take no device
+            args = args + ["--device", "cuda"]
+        secs[name], stdout = _cli(args)
+        if name.startswith("measures_") and name != "measures_std":
+            results[name] = {k: v["q0.5"] for k, v in json.loads(stdout).items()}
+        elif name == "measures_std":
+            results[name] = json.loads(stdout)
+        elif name == "old_school":
+            results[name] = {ln.split()[1]: float(ln.split()[3]) for ln in stdout.strip().splitlines()}
+    for name in ("beat", "cross"):
+        with open(out[name]) as fh:
+            results[name] = json.load(fh)
+        check(all(math.isfinite(v) for v in results[name].values()), f"{name} CLI results {results[name]}")
+    with open(out["few"]) as fh:
+        results["few_shot"] = json.load(fh)
+    check(set(results["few_shot"]) == {"1", "2"}, f"few-shot CLI results {results['few_shot']}")
+    check(all(math.isfinite(v) for v in results["measures_std"].values()), f"measures --status std {results}")
+    for name in ("measures_vanilla", "measures_bock", "measures_anchor"):
+        check(all(math.isfinite(v) for v in results[name].values()), f"{name}: {results[name]}")
+    check(results["old_school"]["F1"] >= OLD_SCHOOL_F1_MIN, f"old-school mean F1 {results['old_school']}")
+    tracker = BeatTracker(device="cuda")
+    for decoder in ("dbn", "librosa"):
+        with open(out[decoder]) as fh:
+            tracked = json.load(fh)
+        check(sorted(tracked) == [r.name for r in records], f"track-dir {decoder} files {sorted(tracked)}")
+        for name, beats in tracked.items():
+            _beats_match(np.asarray(beats), tracker.track_file(os.path.join(wav_dir, name), decoder=decoder).beat_times,
+                         f"track-dir {decoder} {name} vs in-process")
+    for r in records:
+        sig, sr = audio_io.read_wav(os.path.join(root, "wavs44k", r.name))
+        check(sr == 44100 and sig.shape[0] == 12 * 44100, f"resave {r.name}: {sr} Hz, {sig.shape[0]} samples")
+    emit("evaluate", part="cli", seconds=secs, results=results)
+    shutil.rmtree(root)
+
+
+def phase_evaluate(ds) -> None:
+    t0 = time.perf_counter()
+    _bock_parity(ds)
+    _bock_steps()
+    _evaluate_cli(ds)
+    emit("evaluate", part="done", seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -995,10 +1316,12 @@ def main() -> None:
     phase_build()
     stats = {k: {"max_abs_err": 0.0} for k in KERNEL_SOURCES}
     phase_kernels(stats, args.trace)
-    phase_main_path(stats, args.trace)
+    pulse = phase_main_path(stats, args.trace)
+    phase_decode(stats, pulse)
     phase_throughput()
-    phase_train(stats)
+    ds = phase_train(stats)
     phase_pretext(stats)
+    phase_evaluate(ds)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         s = stats.pop(name)
@@ -1007,7 +1330,9 @@ def main() -> None:
                             bound_ms=s.pop("bound_ms"), bound_by=s.pop("bound_by"),
                             library_ms=s.pop("library_ms"), **s))
         k = kernels[-1]
-        check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "library_ms", "bound_ms")), f"{name}: missing time")
+        # No single PyTorch call computes the Viterbi recursion: its library_ms is null.
+        timed = ("ms", "plain_ms", "bound_ms") + (() if name == "viterbi" else ("library_ms",))
+        check(all(math.isfinite(k[f]) for f in timed), f"{name}: missing time")
     emit("done", seconds=time.perf_counter() - t_start)
     out_line(json.dumps({"kernels": kernels}))
     out_line(smi)

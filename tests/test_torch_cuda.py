@@ -12,10 +12,13 @@ pulses card vs CPU 1e-3 (cuDNN may pick FFT or Winograd sums), one train
 step card vs CPU: loss 1e-4 relative, gradients 1e-2 of each tensor's
 largest, parameters 2 lr plus their float32 rounding; the staged pretext
 step at k = 2 card vs CPU at the same tolerances (its gradients with the
-CPU's max-pool and ReLU decisions replayed on the card).
+CPU's max-pool and ReLU decisions replayed on the card); the batched DBN
+Viterbi kernel equal to its plain version bit for bit, and the device
+decode's beats equal to the float64 DBN's on clean golden activations.
 """
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -182,3 +185,48 @@ def test_pretext_banks_launch_each_kernel_once_a_log_vqt(cuda, tmp_path):
         bank = build()
         assert len(bank) == 3 and np.isfinite(bank).all()
         assert vk.LAUNCHES == {k: before[k] + per_item * 3 for k in before}
+
+
+def _golden():
+    return np.load(os.path.join(os.path.dirname(__file__), "fixtures", "dbn_golden.npz"))
+
+
+def test_viterbi_kernel_matches_plain_exactly(cuda):
+    """Ragged songs (one of a single frame) zero-padded into one batch: the
+    kernel's final scores, tempo choices and best states equal the plain
+    frame loop's on the card bit for bit, in one launch."""
+    from zeronotesamba_torch.decode import dbn_device
+    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+
+    gold = _golden()
+    acts = [gold[k].astype(np.float64) for k in ("act_clean_bpm95", "act_noise_only", "act_short_3s")]
+    acts.append(np.full(1, 0.5))
+    t_pad = max(len(a) for a in acts)
+    masked = np.stack([np.pad(a, (0, t_pad - len(a))) for a in acts])
+    cfg = DBNBeatDecoderConfig()
+    la, lna = (torch.tensor(x.astype(np.float32), device=cuda) for x in dbn_device._observations(masked, cfg))
+    space = dbn_device._space(cfg, cuda)
+    before = dict(dbn_kernel.LAUNCHES)
+    got = dbn_kernel.viterbi_forward(la, lna, space)
+    assert dbn_kernel.LAUNCHES["viterbi"] == before["viterbi"] + 1
+    ref = dbn_kernel.viterbi_forward_plain(la, lna, space)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r)
+
+
+def test_decode_beats_device_matches_decode_beats(cuda):
+    from zeronotesamba_torch.decode import decode_beats, decode_beats_batch_device, decode_beats_device
+
+    gold = _golden()
+    keys = ("act_clean_bpm120", "act_jitter_bpm80", "act_ramp_70_140", "act_weak_bpm90")
+    acts = [gold[k].astype(np.float64) for k in keys]
+    for act in acts:
+        np.testing.assert_array_equal(decode_beats_device(act, device="cuda"), decode_beats(act))
+    t_pad = max(len(a) for a in acts)
+    batch = np.stack([np.pad(a, (0, t_pad - len(a))) for a in acts])
+    lengths = [len(a) for a in acts]
+    for act, beats in zip(acts, decode_beats_batch_device(batch, lengths, device="cuda")):
+        np.testing.assert_array_equal(beats, decode_beats(act, use_native=False))
+    assert decode_beats_batch_device(batch, [lengths[0], 0, 5, 7], device="cuda")[1].size == 0

@@ -108,9 +108,17 @@ def test_dbn_exact_on_golden_fixture():
             np.testing.assert_allclose(got, gold[f"beats_{tag}_{key}"], atol=1e-9)
 
 
-def test_unported_decoder_raises():
-    with pytest.raises(NotImplementedError):
-        decode(np.zeros(100), "librosa")
+def test_unported_decoder_raises(results, jax_tracker, tracker):
+    """The Ellis DP decoder ('librosa'/'ellis') equals the JAX package's on
+    one pulse and in track_signal; an unknown decoder raises ValueError."""
+    pulse = results[0].fused_pulse
+    np.testing.assert_array_equal(decode(pulse, "librosa"), j_decode(pulse, "librosa"))
+    np.testing.assert_array_equal(decode(pulse, "ellis"), decode(pulse, "librosa"))
+    sig, _ = click_track(8.0, 120.0, seed=11)
+    ref = jax_tracker.track_signal(sig, separation="hpss", decoder="librosa")
+    out = tracker.track_signal(sig, separation="hpss", decoder="librosa")
+    np.testing.assert_allclose(out.fused_pulse, ref.fused_pulse, atol=1e-4)
+    _beats_close(out.beat_times, ref.beat_times)
     with pytest.raises(ValueError):
         decode(np.zeros(100), "viterbi")
 

@@ -103,16 +103,21 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
-    """Every CUDA source is declared package data, and a copy that lacks them
-    says so before it tries to build."""
+    """Every CUDA source and the native DBN's C++ source are declared package
+    data, and a copy that lacks them says so before it tries to build."""
     import tomllib
 
+    from zeronotesamba_torch.decode import dbn_native
     from zeronotesamba_torch.ops.cuda import build
 
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
         data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["zeronotesamba_torch"]
-    assert data == ["csrc/*.cu"]
+    assert data == ["csrc/*.cu", "csrc/*.cpp"]
     assert all((build.CSRC / f"{name}.cu").is_file() for name in build.SOURCES)
+    assert dbn_native.SOURCE.is_file() and dbn_native.SOURCE.parent == build.CSRC
     monkeypatch.setattr(build, "CSRC", tmp_path)
     with pytest.raises(FileNotFoundError, match="cannot be built"):
         build.build_dir()
+    monkeypatch.setattr(dbn_native, "SOURCE", tmp_path / "dbn_viterbi.cpp")
+    with pytest.raises(FileNotFoundError, match="cannot be built"):
+        dbn_native.library_path()

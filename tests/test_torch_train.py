@@ -111,8 +111,19 @@ def test_frozen_trunk_optimizer_holds_only_the_heads():
 
 
 def test_bock_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_model("bock")
+    """Status 'bock' builds the BockTCN baseline (models/baseline.py) in the
+    compute dtype asked for, and its optimizer holds every parameter at the
+    plain lr, frozen or not; an unknown compute dtype raises."""
+    from zeronotesamba_torch.models.baseline import BockTCN
+
+    model = make_model("bock")
+    assert isinstance(model, BockTCN) and model.compute_dtype == torch.float32
+    assert make_model("bock", "bfloat16").compute_dtype == torch.bfloat16
+    for pre in ("finetune", "frozen"):
+        (group,) = make_optimizer(model, "bock", pre, 1e-3).param_groups
+        assert len(group["params"]) == len(list(model.parameters())) and group["lr"] == 1e-3
+    with pytest.raises(KeyError):
+        make_model("bock", "float16")
 
 
 def _example(t):

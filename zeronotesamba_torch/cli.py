@@ -1,15 +1,23 @@
 """Command-line entry point of the port (python -m zeronotesamba_torch).
 
-Subcommands, each with the JAX CLI's flags plus ``--device`` (default
-``cuda``; ``cpu`` to run on the CPU):
+Subcommands, each with the JAX CLI's flags; those that run a model also
+take ``--device`` (default ``cuda``; ``cpu`` to run on the CPU):
     build-data   ETL a dataset directory into an npz record cache
     beat         k-fold CV beat-tracking experiment on a cached dataset
+    cross        cross-dataset experiment (train X, test Y)
+    few-shot     training-set size sweep
     pretext      self-supervised contrastive pretraining -> a .pth in the
                  reference key names (models/shift_pret_cnn_16.pth)
+    old-school   Ellis DP baseline on raw audio (host only)
+    measures     embedding information measures over a dataset, or
+                 (--status std) the NT-Xent validation over a bank
     infer        one file -> pulse + beats (JSON on stdout)
+    resave       re-sample every wav under a directory tree (host only)
+    track-dir    batch-track every wav in a directory
 
-The JAX package's other subcommands are not ported yet (ROADMAP "Modules to
-port", item 11).
+``train-separator``, ``demo-suite`` and ``export-xlsx`` parse the JAX CLI's
+flags and raise NotImplementedError: they wait for the learned separator
+and the rest of the reporting (ROADMAP "Modules to port", items 9 and 11).
 """
 
 from __future__ import annotations
@@ -18,6 +26,12 @@ import argparse
 import json
 
 DEVICE_HELP = "torch device (default cuda; 'cpu' to run on the CPU)"
+NOT_PORTED = {
+    "train-separator": "train-separator (the learned MaskNet separator) is not ported yet "
+                       "(ROADMAP 'Modules to port', item 9)",
+    "demo-suite": "demo-suite is not ported yet (ROADMAP 'Modules to port', item 11)",
+    "export-xlsx": "export-xlsx (experiments/report_xlsx.py) is not ported yet (ROADMAP 'Modules to port', item 11)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,6 +67,37 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
+    c = sub.add_parser("cross", help="cross-dataset experiment")
+    c.add_argument("--train-data", required=True)
+    c.add_argument("--test-data", required=True)
+    for a in (("--status", "vanilla"), ("--pre", "finetune")):
+        c.add_argument(a[0], default=a[1])
+    c.add_argument("--lr", type=float, default=1e-5)
+    c.add_argument("--eval", default="dbn")
+    c.add_argument("--max-epochs", type=int, default=500)
+    c.add_argument("--patience", type=int, default=20)
+    c.add_argument("--batch-size", type=int, default=8)
+    c.add_argument("--folds", type=int, default=8, help="folds of the train dataset")
+    c.add_argument("--params", default=None, help="initial weights (.pth or .npz) in the reference key names")
+    c.add_argument("--out", default=None)
+    c.add_argument("--seed", type=int, default=0)
+    c.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    f = sub.add_parser("few-shot", help="training-set size sweep")
+    f.add_argument("--data", required=True)
+    f.add_argument("--status", default="vanilla")
+    f.add_argument("--pre", default="finetune")
+    f.add_argument("--lr", type=float, default=1e-5)
+    f.add_argument("--sizes", default="1,2,4,8,16")
+    f.add_argument("--repeats", type=int, default=3)
+    f.add_argument("--max-epochs", type=int, default=100)
+    f.add_argument("--patience", type=int, default=10)
+    f.add_argument("--batch-size", type=int, default=8)
+    f.add_argument("--params", default=None, help="initial weights (.pth or .npz) in the reference key names")
+    f.add_argument("--out", default=None)
+    f.add_argument("--seed", type=int, default=0)
+    f.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
     pt = sub.add_parser("pretext", help="contrastive pretraining")
     pt.add_argument("--stem-root", default=None, help="new_data/-style stem dir (10%% kept for validation)")
     pt.add_argument("--bank", default=None, help="prebuilt .npz bank (train_bank/val_bank arrays)")
@@ -75,14 +120,73 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
+    o = sub.add_parser("old-school", help="Ellis DP baseline on raw audio")
+    o.add_argument("--data", required=True, help="npz cache (uses stored beat times)")
+    o.add_argument("--audio-root", required=True, help="directory of wavs")
+
+    m = sub.add_parser("measures", help="embedding information measures")
+    m.add_argument("--data", default=None, help="npz dataset cache (not needed for --status std)")
+    m.add_argument("--status", default="van", help="reference meastatus label (van/rand/drums/ros/mix/std/bock)")
+    m.add_argument("--model", default=None, choices=["vanilla", "pretrained", "bock"],
+                   help="override the model family (default: inferred from the data; "
+                        "'bock' measures the TCN baseline's activations, reference measures.py:270-277)")
+    m.add_argument("--stream", default="fused", choices=["fused", "anchor", "positive"],
+                   help="which pulse to measure (reference drums=positive, ros=anchor, mix=fused)")
+    m.add_argument("--bank", default=None, help="npz bank with val_bank array (--status std)")
+    m.add_argument("--params", default=None, help="weights (.pth or .npz) in the reference key names")
+    m.add_argument("--out", default="results/measures")
+    m.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
     i = sub.add_parser("infer", help="track one audio file")
     i.add_argument("audio", help="wav file")
     i.add_argument("--params", default=None, help="state dict (.pth or .npz) in the reference key names")
-    i.add_argument("--separation", default="hpss", choices=["hpss", "stems", "mix"])
-    i.add_argument("--decoder", default="dbn", choices=["dbn", "threshold"])
-    i.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    _add_tracking(i)
     i.add_argument("--out", default=None, help="write JSON result here")
+
+    rs = sub.add_parser("resave", help="re-sample every wav under a directory tree")
+    rs.add_argument("audio_root", help="directory tree of .wav files")
+    rs.add_argument("--out", required=True, help="output root (structure preserved)")
+    rs.add_argument("--rate", type=int, default=44100, help="target sample rate")
+
+    # Not ported yet: the JAX CLI's flags, then NotImplementedError (main).
+    ts = sub.add_parser("train-separator", help="train the learned drum/rest mask separator (not ported yet)")
+    ts.add_argument("--steps", type=int, default=1500)
+    ts.add_argument("--batch-size", type=int, default=8)
+    ts.add_argument("--lr", type=float, default=3e-4)
+    ts.add_argument("--train-songs", type=int, default=40)
+    ts.add_argument("--val-songs", type=int, default=8)
+    ts.add_argument("--checkpoint", default="models/separator")
+    ts.add_argument("--out", default=None)
+    ts.add_argument("--seed", type=int, default=0)
+    d = sub.add_parser("demo-suite", help="reproduce the full experiment grid on synthetic data (not ported yet)")
+    d.add_argument("--out", default="results/synthetic")
+    d.add_argument("--songs", type=int, default=24)
+    d.add_argument("--pretext-epochs", type=int, default=120)
+    d.add_argument("--max-epochs", type=int, default=60)
+    d.add_argument("--folds", type=int, default=4)
+    d.add_argument("--clmr", action="store_true")
+    d.add_argument("--difficulty", type=float, default=1.0)
+    d.add_argument("--pretext-selection", default="proxy_f1", choices=["proxy_f1", "val_loss"])
+    d.add_argument("--seed", type=int, default=0)
+    x = sub.add_parser("export-xlsx", help="render evidence JSONs as the reference's workbooks (not ported yet)")
+    x.add_argument("--src", default="results/synthetic")
+    x.add_argument("--out", default="results/synthetic/xlsx")
+
+    td = sub.add_parser("track-dir", help="batch-track every wav in a directory")
+    td.add_argument("audio_dir")
+    td.add_argument("--params", default=None, help="state dict (.pth or .npz) in the reference key names")
+    _add_tracking(td)
+    td.add_argument("--out", required=True, help="output JSON (one entry per file)")
     return ap
+
+
+def _add_tracking(p: argparse.ArgumentParser) -> None:
+    """The separation, decoder and device flags of infer and track-dir."""
+    p.add_argument("--separation", default="hpss", choices=["hpss", "stems", "learned", "mix"],
+                   help="'learned' is not ported yet and raises")
+    p.add_argument("--sep-model", default="models/separator", help="mask-net params (--separation learned)")
+    p.add_argument("--decoder", default="dbn", choices=["dbn", "librosa", "threshold"])
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
 
 def main(argv=None):
@@ -103,7 +207,6 @@ def main(argv=None):
     elif args.cmd == "beat":
         from zeronotesamba_torch.data.datasets import BeatDataset
         from zeronotesamba_torch.experiments.beat import BeatExperimentConfig, run_beat_experiment, summarize
-        from zeronotesamba_torch.models.weights import load_state_dict_file
 
         ds = BeatDataset.load(args.data)
         cfg = BeatExperimentConfig(
@@ -113,9 +216,37 @@ def main(argv=None):
             steps_per_call=args.steps_per_call,
             freq_s2d=(1,) if args.freq_s2d else (),
         )
-        params = load_state_dict_file(args.params) if args.params else None
-        results = run_beat_experiment(ds, cfg, init_params=params, device=args.device)
+        results = run_beat_experiment(ds, cfg, init_params=_load_params(args.params), device=args.device)
         _dump(args.out, summarize(results))
+
+    elif args.cmd == "cross":
+        from zeronotesamba_torch.data.datasets import BeatDataset
+        from zeronotesamba_torch.experiments.beat import BeatExperimentConfig, summarize
+        from zeronotesamba_torch.experiments.cross import run_cross_experiment
+
+        cfg = BeatExperimentConfig(
+            status=args.status, pre=args.pre, lr=args.lr, eval_method=args.eval, n_folds=args.folds,
+            max_epochs=args.max_epochs, patience=args.patience, batch_size=args.batch_size, seed=args.seed,
+        )
+        results = run_cross_experiment(
+            BeatDataset.load(args.train_data), BeatDataset.load(args.test_data), cfg,
+            init_params=_load_params(args.params), device=args.device,
+        )
+        _dump(args.out, summarize(results))
+
+    elif args.cmd == "few-shot":
+        from zeronotesamba_torch.data.datasets import BeatDataset
+        from zeronotesamba_torch.experiments.beat import BeatExperimentConfig
+        from zeronotesamba_torch.experiments.few_shot import run_few_shot
+
+        cfg = BeatExperimentConfig(
+            status=args.status, pre=args.pre, lr=args.lr, max_epochs=args.max_epochs,
+            patience=args.patience, batch_size=args.batch_size, seed=args.seed,
+        )
+        sizes = [int(s) for s in args.sizes.split(",")]
+        res = run_few_shot(BeatDataset.load(args.data), cfg, train_sizes=sizes, repeats=args.repeats,
+                           init_params=_load_params(args.params), device=args.device)
+        _dump(args.out, {str(k): v for k, v in res.items()})
 
     elif args.cmd == "pretext":
         import numpy as np
@@ -150,19 +281,139 @@ def main(argv=None):
         print(json.dumps({"checkpoint": args.checkpoint, "epochs": len(hist["val_loss"]),
                           "best_val_loss": min(hist["val_loss"]), "restarts": hist["restarts"]}))
 
+    elif args.cmd in ("train-separator", "demo-suite", "export-xlsx"):
+        raise NotImplementedError(NOT_PORTED[args.cmd])
+
+    elif args.cmd == "old-school":
+        import os
+
+        import numpy as np
+
+        from zeronotesamba_torch.data import audio_io
+        from zeronotesamba_torch.data.datasets import BeatDataset
+        from zeronotesamba_torch.decode.ellis import beat_track_signal
+        from zeronotesamba_torch.metrics.beat import evaluate_beats
+
+        ds = BeatDataset.load(args.data)
+        all_scores = []
+        for rec in ds:
+            wav = os.path.join(args.audio_root, rec.name)
+            if not os.path.exists(wav):
+                continue
+            sig, _ = audio_io.load_audio(wav, target_sr=16000)
+            all_scores.append(evaluate_beats(rec.beat_times, beat_track_signal(sig)))
+        if not all_scores:
+            raise SystemExit(f"no audio files from {args.data} found under {args.audio_root}")
+        arr = np.asarray(all_scores)
+        for i, n in enumerate(["F1", "CMLc", "CMLt", "AMLc", "AMLt", "InfoGain"]):
+            print(f"Mean {n} is {arr[:, i].mean():.3f} +- {arr[:, i].std():.3f}.")
+
+    elif args.cmd == "measures":
+        import numpy as np
+
+        if args.status == "std":
+            # NT-Xent validation re-run over a saved bank (reference
+            # measures.py:394-429): contrastive loss and similarities.
+            import torch
+
+            from zeronotesamba_torch.device import resolve_device
+            from zeronotesamba_torch.experiments.pretext_driver import fixed_val_shifts
+            from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_eval_step
+
+            if not args.bank:
+                raise SystemExit("--status std requires --bank (npz with val_bank)")
+            with np.load(args.bank) as z:
+                val_bank = z["val_bank"]
+            pcfg = PretextConfig()
+            dev = resolve_device(args.device)
+            state = init_pretext_state(pcfg, 0, params=_load_params(args.params), device=dev)
+            ev = make_eval_step(pcfg)
+            losses, poss, negs = [], [], []
+            for vb in fixed_val_shifts(val_bank, pcfg, 0):
+                loss, pc, nc = ev(state, torch.as_tensor(vb, device=dev))
+                losses.append(float(loss))
+                poss.append(float(pc))
+                negs.append(float(nc))
+            payload = {"val_loss": float(np.mean(losses)), "pos_sim": float(np.mean(poss)),
+                       "neg_sim": float(np.mean(negs))}
+            print(json.dumps(payload, indent=2))
+            _dump(args.out + "_std.json" if args.out else None, payload)
+            return
+
+        from zeronotesamba_torch.data.datasets import BeatDataset
+        from zeronotesamba_torch.experiments.measures import measure_arm, write_measures_report
+
+        if not args.data:
+            raise SystemExit("--data required (except for --status std)")
+        ds = BeatDataset.load(args.data)
+        status = args.model or ("pretrained" if ds[0].vqt.shape[0] == 2 else "vanilla")
+        # Per-stream pulses (reference meastatus 'ros'/'drums' measure the
+        # anchor / percussive streams separately, measures.py:341-392).
+        table = measure_arm(ds, status, _load_params(args.params), stream=args.stream, device=args.device)
+        write_measures_report(table, args.out, args.status)
+        print(json.dumps(table, indent=2))
+
     elif args.cmd == "infer":
         from zeronotesamba_torch.infer import BeatTracker
-        from zeronotesamba_torch.models.weights import load_state_dict_file
 
-        sd = load_state_dict_file(args.params) if args.params else None
-        tracker = BeatTracker(sd, device=args.device)
-        res = tracker.track_file(args.audio, separation=args.separation, decoder=args.decoder)
+        tracker = BeatTracker(_load_params(args.params), device=args.device)
+        res = tracker.track_file(args.audio, separation=args.separation, decoder=args.decoder,
+                                 sep_model=args.sep_model if args.separation == "learned" else None)
         payload = {
             "n_frames": int(res.fused_pulse.shape[0]),
             "beat_times": [float(t) for t in (res.beat_times if res.beat_times is not None else [])],
         }
         print(json.dumps(payload))
         _dump(args.out, payload)
+
+    elif args.cmd == "resave":
+        # Dataset re-sample utility (reference measures.gtzan_44100,
+        # zeroNoteSamba/measures.py:280-305, generalized to any tree and rate).
+        import os
+
+        from zeronotesamba_torch.data import audio_io
+
+        n = 0
+        for dirpath, _, files in os.walk(args.audio_root):
+            rel = os.path.relpath(dirpath, args.audio_root)
+            for f in sorted(files):
+                if not f.endswith(".wav"):
+                    continue
+                sig, _ = audio_io.load_audio(os.path.join(dirpath, f), target_sr=args.rate)
+                out_dir = os.path.join(args.out, rel) if rel != "." else args.out
+                os.makedirs(out_dir, exist_ok=True)
+                audio_io.write_wav(os.path.join(out_dir, f), sig, args.rate)
+                n += 1
+        print(f"resaved {n} files at {args.rate} Hz -> {args.out}")
+
+    elif args.cmd == "track-dir":
+        import os
+
+        from zeronotesamba_torch.infer import BeatTracker
+
+        tracker = BeatTracker(_load_params(args.params), device=args.device)
+        results = {}
+        for f in sorted(os.listdir(args.audio_dir)):
+            if not f.endswith(".wav"):
+                continue
+            try:
+                res = tracker.track_file(os.path.join(args.audio_dir, f), separation=args.separation,
+                                         decoder=args.decoder,
+                                         sep_model=args.sep_model if args.separation == "learned" else None)
+                results[f] = [float(t) for t in res.beat_times]
+            except (ValueError, OSError) as e:
+                results[f] = {"error": str(e)}
+        _dump(args.out, results)
+        print(f"tracked {len(results)} files -> {args.out}")
+
+
+def _load_params(path):
+    """A weights file (.pth or .npz) in the reference key names, or None."""
+    if not path:
+        return None
+    from zeronotesamba_torch.models.weights import load_state_dict_file
+
+    return load_state_dict_file(path)
 
 
 def _dump(path, obj):

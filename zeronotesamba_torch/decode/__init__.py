@@ -1,14 +1,14 @@
-"""Beat decoders: DBN/HMM Viterbi and threshold picking.
-
-The Ellis DP decoder (``librosa``/``ellis``), the online DBN and the device
-Viterbi are not ported yet (ROADMAP "Modules to port", item 8).
-"""
+"""Beat decoders: threshold picking, Ellis DP, DBN/HMM Viterbi (C++, numpy,
+batched on the card) and the online DBN."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, beat_activation_to_times, decode_beats
+from zeronotesamba_torch.decode.dbn_device import decode_beats_batch_device, decode_beats_device
+from zeronotesamba_torch.decode.dbn_online import OnlineBeatDecoder, decode_beats_online
+from zeronotesamba_torch.decode.ellis import beat_track_dp, beat_track_signal, estimate_tempo, onset_strength
 
 
 def threshold_beats(activations: np.ndarray, thresh_val: float = 0.075, fps: float = 62.5) -> np.ndarray:
@@ -18,16 +18,28 @@ def threshold_beats(activations: np.ndarray, thresh_val: float = 0.075, fps: flo
 
 
 def decode(activations: np.ndarray, method: str = "dbn", *, fps: float = 62.5, thresh_val: float = 0.075) -> np.ndarray:
-    """Dispatch on the reference's decoder modes ('dbn'/'threshold'; 'librosa' is not ported)."""
+    """Dispatch on the reference's three decoder modes ('dbn'/'librosa'/'threshold')."""
     if method == "dbn":
         return beat_activation_to_times(activations, fps=fps)
     if method in ("librosa", "ellis"):
-        raise NotImplementedError(
-            f"decoder {method!r} (Ellis DP) is not ported yet (ROADMAP 'Modules to port', item 8)"
-        )
+        return beat_track_dp(activations, fps=fps)
     if method == "threshold":
         return threshold_beats(activations, thresh_val=thresh_val, fps=fps)
     raise ValueError(f"unknown decoder {method!r} (expected dbn|librosa|threshold)")
 
 
-__all__ = ["DBNBeatDecoderConfig", "beat_activation_to_times", "decode_beats", "threshold_beats", "decode"]
+__all__ = [
+    "DBNBeatDecoderConfig",
+    "beat_activation_to_times",
+    "decode_beats",
+    "decode_beats_device",
+    "decode_beats_batch_device",
+    "decode_beats_online",
+    "OnlineBeatDecoder",
+    "beat_track_dp",
+    "beat_track_signal",
+    "estimate_tempo",
+    "onset_strength",
+    "threshold_beats",
+    "decode",
+]

@@ -1,9 +1,11 @@
-"""DBN/HMM beat decoder — madmom-equivalent dynamic Bayesian network (numpy).
+"""DBN/HMM beat decoder — madmom-equivalent dynamic Bayesian network.
 
-The port's copy of zeronotesamba_tpu/decode/dbn.py, decoding with the exact
-numpy Viterbi. The reference's headline numbers use madmom's
-DBNBeatTrackingProcessor with min_bpm=55, max_bpm=215, transition_lambda=100,
-fps=62.5 (Krebs, Böck & Widmer, ISMIR 2015):
+The port's copy of zeronotesamba_tpu/decode/dbn.py. The Viterbi runs in C++
+(decode/dbn_native.py, the default, as in the JAX package) or in numpy
+(``use_native=False``); the two give the same path exactly. The batched
+Viterbi on the card is decode/dbn_device.py. The reference's headline
+numbers use madmom's DBNBeatTrackingProcessor with min_bpm=55, max_bpm=215,
+transition_lambda=100, fps=62.5 (Krebs, Böck & Widmer, ISMIR 2015):
 
 - state space: one chain of ``tau`` position states per integer beat interval
   ``tau`` in [round(60*fps/max_bpm), round(60*fps/min_bpm)];
@@ -23,6 +25,9 @@ import dataclasses
 import functools
 
 import numpy as np
+
+# Viterbi runs by backend, so a caller can show which one decoded.
+BACKEND_CALLS = {"native": 0, "numpy": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +95,16 @@ def _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_be
     return path
 
 
-def decode_beats(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig()) -> np.ndarray:
-    """Beat times (seconds) from a per-frame beat activation in [0, 1]."""
+def decode_beats(
+    activations: np.ndarray,
+    cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(),
+    *,
+    use_native: bool = True,
+) -> np.ndarray:
+    """Beat times (seconds) from a per-frame beat activation in [0, 1].
+
+    ``use_native`` runs the Viterbi in C++ (built at first use; a failed
+    build raises), else in numpy."""
     act = np.asarray(activations, dtype=np.float64).ravel()
     if cfg.threshold:
         act = np.where(act >= cfg.threshold, act, 0.0)
@@ -103,7 +116,14 @@ def decode_beats(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDec
     eps = np.spacing(1)
     log_act = np.log(act + eps)
     log_nact = np.log((1.0 - act) / (cfg.observation_lambda - 1) + eps)
-    path = _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_beat)
+    if use_native:
+        from zeronotesamba_torch.decode.dbn_native import viterbi_native
+
+        path = viterbi_native(log_act, log_nact, intervals, log_trans, is_beat, firsts, lasts)
+        BACKEND_CALLS["native"] += 1
+    else:
+        path = _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_beat)
+        BACKEND_CALLS["numpy"] += 1
 
     beat_range = is_beat[path]
     if cfg.correct:

@@ -1,0 +1,114 @@
+"""Batched DBN beat decoding on the card (the Viterbi forward pass in one kernel launch).
+
+Port of zeronotesamba_tpu/decode/dbn_jax.py. The forward max-product
+recursion of a whole padded batch runs in float32 on ``device``: one launch
+of csrc/dbn_viterbi.cu on a card, its plain PyTorch version on the CPU
+(ops/cuda/dbn_kernel.py). Only the (T, n_intervals) tempo choices and each
+frame's best state return to the host, which backtracks every song from ITS
+final valid frame, so a batched decode equals a per-song decode of the
+unpadded activation. The observation log-probs are computed in float64 on
+the host, as the JAX code does, and cast to float32.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, _argmax_per_run, _state_space
+from zeronotesamba_torch.device import resolve_device
+from zeronotesamba_torch.ops.cuda.dbn_kernel import ViterbiSpace, viterbi_forward, viterbi_space
+
+
+@functools.lru_cache(maxsize=8)
+def _space(cfg: DBNBeatDecoderConfig, device: torch.device) -> ViterbiSpace:
+    _, firsts, lasts, _, _, log_trans, is_beat = _state_space(cfg)
+    return viterbi_space(log_trans, firsts, lasts, is_beat, device)
+
+
+def _observations(acts: np.ndarray, cfg: DBNBeatDecoderConfig):
+    eps = np.spacing(1)
+    return np.log(acts + eps), np.log((1.0 - acts) / (cfg.observation_lambda - 1) + eps)
+
+
+def viterbi_forward_device(log_act: np.ndarray, log_nact: np.ndarray,
+                           cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(), *, device: str | torch.device = "cuda"):
+    """(B, T) float64 observation log-probs -> numpy (v_final (B, S) float32,
+    fc (B, T, n_int) int16, best (B, T) int32), computed on ``device``."""
+    dev = resolve_device(device)
+    la, lna = (torch.tensor(np.asarray(x, np.float64).astype(np.float32), device=dev) for x in (log_act, log_nact))
+    v_final, fc, best = viterbi_forward(la, lna, _space(cfg, dev))
+    return v_final.cpu().numpy(), fc.cpu().numpy(), best.cpu().numpy()
+
+
+def _backtrack(start_state: int, fcs: np.ndarray, cfg: DBNBeatDecoderConfig) -> np.ndarray:
+    _, firsts, lasts, _, _, _, _ = _state_space(cfg)
+    n_frames = fcs.shape[0]
+    path = np.empty(n_frames, dtype=np.int64)
+    s = start_state
+    first_to_int = {int(f): i for i, f in enumerate(firsts)}
+    for t in range(n_frames - 1, -1, -1):
+        path[t] = s
+        fi = first_to_int.get(s)
+        s = int(lasts[fcs[t, fi]]) if fi is not None else s - 1
+    return path
+
+
+def _beats(path: np.ndarray, act: np.ndarray, cfg: DBNBeatDecoderConfig) -> np.ndarray:
+    _, _, _, positions, _, _, is_beat = _state_space(cfg)
+    if cfg.correct:
+        frames = _argmax_per_run(is_beat[path], act)
+    else:
+        frames = np.nonzero(np.diff(positions[path]) < 0)[0] + 1
+    return frames / cfg.fps
+
+
+def viterbi_path_device(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(), *,
+                        device: str | torch.device = "cuda") -> np.ndarray:
+    """Device forward pass + host backtrack -> state path (T,)."""
+    act = np.asarray(activations, dtype=np.float64).ravel()
+    log_act, log_nact = _observations(act, cfg)
+    v_final, fcs, _ = viterbi_forward_device(log_act[None], log_nact[None], cfg, device=device)
+    return _backtrack(int(np.argmax(v_final[0])), fcs[0], cfg)
+
+
+def decode_beats_device(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(), *,
+                        device: str | torch.device = "cuda") -> np.ndarray:
+    """Beat times via the device Viterbi (equivalent to decode_beats)."""
+    act = np.asarray(activations, dtype=np.float64).ravel()
+    if act.size == 0:
+        return np.empty(0)
+    return _beats(viterbi_path_device(act, cfg, device=device), act, cfg)
+
+
+def decode_beats_batch_device(
+    activations: np.ndarray,
+    n_frames: Sequence[int],
+    cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(),
+    *,
+    device: str | torch.device = "cuda",
+) -> List[np.ndarray]:
+    """Batched decode: (B, T_pad) activations + per-song valid lengths.
+
+    Frames past a song's length are masked to 0, the whole batch runs one
+    forward pass, and each song backtracks from the best state at its own
+    final valid frame over fc[:nf], which makes the result exactly equal to a
+    per-song decode of the unpadded activation."""
+    acts = np.asarray(activations, dtype=np.float64)
+    masked = acts.copy()
+    for b, nf in enumerate(n_frames):
+        masked[b, nf:] = 0.0
+    log_act, log_nact = _observations(masked, cfg)
+    _, fcs, bests = viterbi_forward_device(log_act, log_nact, cfg, device=device)
+    out = []
+    for b, nf in enumerate(n_frames):
+        if nf <= 0:
+            # Guard: bests[b, -1] would backtrack from the last PADDED frame.
+            out.append(np.zeros(0, dtype=np.float64))
+            continue
+        path = _backtrack(int(bests[b, nf - 1]), fcs[b, :nf], cfg)
+        out.append(_beats(path, masked[b, :nf], cfg))
+    return out

@@ -41,7 +41,7 @@ METRIC_NAMES = ["F1", "CMLc", "CMLt", "AMLc", "AMLt", "InfoGain"]
 
 @dataclasses.dataclass
 class BeatExperimentConfig:
-    status: str = "vanilla"  # vanilla | pretrained | clmr | bock (TCN baseline, not ported)
+    status: str = "vanilla"  # vanilla | pretrained | clmr | bock (TCN baseline, models/baseline.py)
     pre: str = "finetune"  # finetune | frozen | validation
     lr: float = 1e-5
     eval_method: str = "dbn"

@@ -56,10 +56,13 @@ INPUT_MEAN = -6.0
 INPUT_STD = 5.0
 
 
-def _he_normal_(w: torch.Tensor, generator: torch.Generator | None) -> None:
-    """Flax ``he_normal``: truncated normal at +-2 sd, variance 2/fan_in."""
+def fan_in_truncated_normal_(w: torch.Tensor, scale: float, generator: torch.Generator | None) -> None:
+    """Flax ``variance_scaling(scale, "fan_in", "truncated_normal")``: a normal
+    truncated at +-2 sd with variance scale/fan_in, where fan_in is the size
+    of one output unit's weights (``he_normal`` at scale 2, ``lecun_normal``
+    at 1)."""
     fan_in = w[0].numel()
-    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978  # sd of N(0,1) truncated to [-2, 2]
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978  # sd of N(0,1) truncated to [-2, 2]
     # Redraw the draws outside [-2, 2], in index order, until none is left:
     # exact, and far faster than nn.init.trunc_normal_'s inverse-CDF
     # sampling at these sizes. Each round touches only the cells still out.
@@ -76,6 +79,17 @@ def _torch_uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator | N
     """torch Conv default (kaiming_uniform a=sqrt(5)) = U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(fan_in)
     nn.init.uniform_(t, -bound, bound, generator=generator)
+
+
+def flax_dropout(h: torch.Tensor, rate: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's dropout in training mode (each cell kept with probability
+    1 - rate, scaled by 1 / (1 - rate)), its mask drawn from ``generator``;
+    the identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return h
+    keep = 1.0 - rate
+    kept = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(kept, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 class Encoder(nn.Module):
@@ -108,15 +122,11 @@ class Encoder(nn.Module):
                     _torch_uniform_(conv.weight, conv.weight[0].numel(), generator)
                     _torch_uniform_(conv.bias, conv.weight[0].numel(), generator)
                 else:
-                    _he_normal_(conv.weight, generator)
+                    fan_in_truncated_normal_(conv.weight, 2.0, generator)  # Flax he_normal
                     conv.bias.zero_()
 
     def _dropout(self, h: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-        if not self.training or self.dropout_rate == 0.0:
-            return h
-        keep = 1.0 - self.dropout_rate
-        kept = torch.rand(h.shape, generator=generator, device=h.device) < keep
-        return torch.where(kept, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+        return flax_dropout(h, self.dropout_rate, self.training, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if x.ndim != 4 or x.shape[1] != 1:

@@ -15,6 +15,9 @@ Per branch: ``pretrained.cv{i}.weight`` (cout, cin, kh, kw) <- Flax
 ``conv{i}.kernel`` (kh, kw, cin, cout); ``fc1.weight`` (1, 128, 1) <-
 ``head.proj.kernel`` (128, 1); biases as they are. A gradient tree has the
 params' layout and converts the same way.
+
+A ``BockTCN`` tree (``front1``.., ``tcn_d{d}``, ``head``) keeps its Flax
+names (``bock_state_dict_from_jax``).
 """
 
 from __future__ import annotations
@@ -43,11 +46,36 @@ def _branch_from_jax(branch: Mapping[str, Any], prefix: str) -> Dict[str, torch.
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
-def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax DSCNN / TwinPretext / FusedDownstream params (numpy leaves, with
-    or without the ``params`` wrapper) -> the matching port model's state
-    dict in the reference key names (module docstring)."""
+def bock_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax BockTCN params (numpy leaves, with or without the ``params``
+    wrapper) -> the port BockTCN's state dict. Kernels: 2-D conv (kh, kw,
+    in, out), kh the frequency axis -> (out, in, kh, kw); 1-D conv (k, in,
+    out) -> (out, in, k); dense (in, out) -> (out, in)."""
     p = params["params"] if "params" in params else params
+    order = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                walk(leaf, f"{prefix}{name}.")
+                continue
+            a = np.asarray(leaf, np.float32)
+            if name == "kernel":
+                a = a.transpose(order[a.ndim])
+            sd[prefix + {"kernel": "weight", "bias": "bias"}[name]] = torch.tensor(np.ascontiguousarray(a))
+
+    walk(p, "")
+    return sd
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax DSCNN / TwinPretext / FusedDownstream / BockTCN params (numpy
+    leaves, with or without the ``params`` wrapper) -> the matching port
+    model's state dict (module docstring)."""
+    p = params["params"] if "params" in params else params
+    if "front1" in p:
+        return bock_state_dict_from_jax(p)
     if "pretext" in p:
         return {FUSED_PREFIX + k: v for k, v in state_dict_from_jax(p["pretext"]).items()}
     if "encoder" in p:

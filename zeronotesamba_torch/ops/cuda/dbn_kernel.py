@@ -1,0 +1,127 @@
+"""The batched DBN Viterbi's Hopper kernel, its plain version, and the wrapper.
+
+Counterpart of zeronotesamba_tpu/decode/dbn_jax.py::_viterbi_scan under
+``vmap``: the max-product recursion over the beat state space for every song
+of a padded batch, in float32, returning the final scores, each frame's
+tempo choices into the chain heads and each frame's best state.
+``viterbi_forward`` launches csrc/dbn_viterbi.cu (one launch a batch, the
+frame loop inside the kernel) for CUDA tensors and runs the plain version,
+a loop over frames of (batch, n_states) tensor operations, for CPU tensors;
+there is no fallback between the two. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+LAUNCHES = {"viterbi": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class ViterbiSpace:
+    """A beat state space as tensors on one device: ``n_int`` chains of
+    consecutive states, chain i from ``firsts[i]`` to ``lasts[i]``."""
+
+    log_trans: torch.Tensor  # (n_int, n_int) float32, from-major
+    firsts: torch.Tensor  # (n_int,) int32
+    lasts: torch.Tensor  # (n_int,) int32
+    is_beat: torch.Tensor  # (n_states,) uint8
+    v0: float  # the initial score of every state (a float32 value)
+
+    @property
+    def n_int(self) -> int:
+        return self.firsts.numel()
+
+    @property
+    def n_states(self) -> int:
+        return self.is_beat.numel()
+
+
+def viterbi_space(log_trans: np.ndarray, firsts: np.ndarray, lasts: np.ndarray, is_beat: np.ndarray,
+                  device: str | torch.device) -> ViterbiSpace:
+    """Check the chain layout the kernel relies on and put the state space on
+    ``device``: ``log_trans`` cast to float32, the uniform start
+    -log(n_states) rounded to float32, as the JAX scan starts."""
+    firsts, lasts = np.asarray(firsts, np.int64), np.asarray(lasts, np.int64)
+    n_int, n_states = firsts.size, np.asarray(is_beat).size
+    if (n_int < 1 or lasts.shape != firsts.shape or np.shape(log_trans) != (n_int, n_int) or firsts[0] != 0
+            or lasts[-1] != n_states - 1 or not np.array_equal(firsts[1:], lasts[:-1] + 1)
+            or np.any(lasts < firsts)):
+        raise ValueError("the state space must be n_int chains of consecutive states, in order, covering every state")
+    return ViterbiSpace(
+        log_trans=torch.tensor(np.asarray(log_trans, np.float32), device=device),
+        firsts=torch.tensor(firsts, dtype=torch.int32, device=device),
+        lasts=torch.tensor(lasts, dtype=torch.int32, device=device),
+        is_beat=torch.tensor(np.asarray(is_beat, np.uint8), device=device),
+        v0=float(np.float32(-np.log(float(n_states)))),
+    )
+
+
+def viterbi_forward_plain(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace):
+    """The kernel's plain version: (B, T) float32 observation log-probs ->
+    (v_final (B, n_states) float32, fc (B, T, n_int) int16, best (B, T) int32)."""
+    batch, n_frames = log_act.shape
+    dev = log_act.device
+    firsts, lasts = space.firsts.long(), space.lasts.long()
+    beat = space.is_beat.bool()
+    v = torch.full((batch, space.n_states), space.v0, dtype=torch.float32, device=dev)
+    fc = torch.empty((batch, n_frames, space.n_int), dtype=torch.int16, device=dev)
+    best = torch.empty((batch, n_frames), dtype=torch.int32, device=dev)
+    for t in range(n_frames):
+        cand = v[:, lasts, None] + space.log_trans  # (B, from, to)
+        fc[:, t] = cand.argmax(dim=1)
+        v_new = torch.roll(v, 1, dims=1)
+        v_new[:, firsts] = cand.amax(dim=1)
+        v = v_new + torch.where(beat, log_act[:, t, None], log_nact[:, t, None])
+        best[:, t] = v.argmax(dim=1)
+    return v, fc, best
+
+
+@functools.lru_cache(maxsize=None)
+def _entry() -> ctypes._CFuncPtr:
+    from zeronotesamba_torch.ops.cuda.build import load
+
+    fn = load("dbn_viterbi").zns_dbn_viterbi
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [p, p, i64, i64, p, p, p, i32, p, i32, ctypes.c_float, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _viterbi_forward_cuda(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace):
+    batch, n_frames = log_act.shape
+    dev = log_act.device
+    v_final = torch.empty((batch, space.n_states), dtype=torch.float32, device=dev)
+    fc = torch.empty((batch, n_frames, space.n_int), dtype=torch.int16, device=dev)
+    best = torch.empty((batch, n_frames), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry()(log_act.data_ptr(), log_nact.data_ptr(), batch, n_frames, space.log_trans.data_ptr(),
+                       space.firsts.data_ptr(), space.lasts.data_ptr(), space.n_int, space.is_beat.data_ptr(),
+                       space.n_states, space.v0, v_final.data_ptr(), fc.data_ptr(), best.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dbn_viterbi kernel launch failed: CUDA error {err}")
+    LAUNCHES["viterbi"] += 1
+    return v_final, fc, best
+
+
+def viterbi_forward(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace):
+    """The Viterbi forward pass of a padded batch: (B, T) float32 log_act and
+    log_nact -> (v_final (B, n_states) float32, fc (B, T, n_int) int16,
+    best (B, T) int32); see viterbi_forward_plain. One kernel launch for
+    CUDA tensors, the plain version for CPU tensors."""
+    for name, t in (("log_act", log_act), ("log_nact", log_nact)):
+        if t.dtype != torch.float32 or t.ndim != 2:
+            raise TypeError(f"{name} must be a (batch, frames) float32 tensor, got {t.dtype} {tuple(t.shape)}")
+    if log_act.shape != log_nact.shape:
+        raise ValueError(f"log_act {tuple(log_act.shape)} and log_nact {tuple(log_nact.shape)} differ")
+    if not log_act.device == log_nact.device == space.log_trans.device:
+        raise ValueError("log_act, log_nact and the state space must be on one device")
+    if not log_act.is_cuda or log_act.shape[0] == 0:  # a batch of no songs launches nothing
+        return viterbi_forward_plain(log_act, log_nact, space)
+    return _viterbi_forward_cuda(log_act.contiguous(), log_nact.contiguous(), space)

@@ -31,6 +31,7 @@ from zeronotesamba_torch.decode import decode as decode_beats_fn
 from zeronotesamba_torch.device import disable_tf32, resolve_device
 from zeronotesamba_torch.losses.bce import masked_bce_logits, masked_bce_twin_logits
 from zeronotesamba_torch.metrics.beat import evaluate_beats
+from zeronotesamba_torch.models.baseline import BockTCN
 from zeronotesamba_torch.models.encoder import DSCNN, FusedDownstream
 from zeronotesamba_torch.models.weights import load_weights
 from zeronotesamba_torch.train.state import TrainState, make_optimizer
@@ -73,10 +74,9 @@ def make_model(status: str, compute_dtype="float32", freq_s2d: Tuple[int, ...] =
     if status == "pretrained":
         return FusedDownstream(compute_dtype=dt, freq_s2d=tuple(freq_s2d))
     if status == "bock":
-        raise NotImplementedError(
-            "status 'bock' (the BockTCN baseline, models/baseline.py) is not ported yet "
-            "(ROADMAP 'Modules to port', item 11)"
-        )
+        # Böck-style TCN comparison baseline (replaces the reference's madmom
+        # RNNBeatProcessor mode, measures.py:270-277).
+        return BockTCN(compute_dtype=dt)
     return DSCNN(compute_dtype=dt)
 
 
