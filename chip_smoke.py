@@ -39,6 +39,18 @@ Phases, each printing one JSON line:
                  time at batch 8 x 768, 20 steps that must lower the loss, and
                  the beat --status bock / cross / few-shot / measures /
                  old-school / track-dir / resave CLI as subprocesses.
+10. separator -- the learned separator, one JSON line per part: one MaskNet
+                 train_step card vs CPU, step times at batch 8 x 256 frames, the
+                 shipped weights' SI-SDR on synth_bank(8, 12 s, 999) against the
+                 JAX package's and the card's HPSS, a 20-step train_separator and
+                 the train-separator CLI, and the learned serving path: a 30 s
+                 click track through track_signal(separation="learned") on the
+                 card and the CPU, launches counted, its stage times, and
+                 infer / track-dir --separation learned.
+11. suite     -- run_demo_suite at a small size on the card (launches counted;
+                 finite results, F1 in [0, 1], the JAX suite's key tree), the
+                 export-xlsx CLI on its output, resample_device card vs CPU, and
+                 the card's log-VQT against the direct float64 oracle.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -122,6 +134,18 @@ KERNEL_SOURCES = {
 # float32 rounding may pick another path, so their differences are reported.
 DECODE_GATED = ("clean_", "jitter_", "weak_", "ramp_")
 ONLINE_F1_MIN = 0.9  # online vs offline DBN on the clean activations (tests/test_dbn_online.py)
+SEP_LR = 1e-3  # the separator step parity's Adam lr
+# The shipped separator's mean SI-SDR (dB, drums and rest) on
+# synth_bank(8, 12.0, 999), and HPSS's, from the JAX package on a CPU: the
+# card must come within SEP_SI_SDR_ATOL of the first and beat its own HPSS.
+# (results/separator_report.json's 15.82 / 28.61 came from an earlier synth_bank.)
+SEP_JAX_SI_SDR = (15.4440, 28.6762)
+SEP_SI_SDR_ATOL = 0.05
+SEP_BATCH = 8  # the JAX CLI's default batch, of CROP_FRAMES (256) frames
+SEP_TRAIN_STEPS, SEP_TRAIN_SONGS, SEP_EVAL_EVERY = 20, 8, 10
+SUITE = dict(n_songs=8, n_songs_b=6, pretext_songs=12, pretext_epochs=3, folds=2, max_epochs=3, patience=3,
+             few_shot_sizes=(1, 2), few_shot_repeats=1, few_shot_max_epochs=3, proxy_songs=2, seed=0)
+RESAMPLE_ATOL = 1e-4  # resample_device card vs CPU, on a signal of peak 1
 
 
 def out_line(line: str) -> None:
@@ -371,13 +395,16 @@ def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
         check(d <= 1.0 / FPS + 1e-9, f"{what}: beats differ by {d} s (> 1 frame)")
 
 
-def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
+def _stage_breakdown(tracker, sig: np.ndarray, trace: bool, separation: str = "hpss") -> dict:
     """Host-clock seconds of each stage of one warm track_signal on the card
     (the same calls, each ended by a synchronize), and with ``trace`` the
-    device's busy time over one whole warm call from the profiler."""
+    device's busy time over one whole warm call from the profiler. With
+    ``separation="learned"`` (the shipped separator) the HPSS stage is timed
+    beside it."""
     from zeronotesamba_torch.data.separation import separate
     from zeronotesamba_torch.decode import decode
     from zeronotesamba_torch.decode.dbn import decode_beats
+    from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
     from zeronotesamba_torch.ops.filterbank import XQTParams
     from zeronotesamba_torch.ops.vqt import best_log_xqt
 
@@ -389,8 +416,12 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
         return out, time.perf_counter() - t0
 
     out = {}
+    sep_model = SEPARATOR_NPZ if separation == "learned" else None
     with torch.inference_mode():
-        (anc, pos), out["separation_hpss_s"] = timed(lambda: separate(sig, SR, "hpss", device=tracker.device))
+        if separation != "hpss":
+            _, out["separation_hpss_s"] = timed(lambda: separate(sig, SR, "hpss", device=tracker.device))
+        (anc, pos), out[f"separation_{separation}_s"] = timed(
+            lambda: separate(sig, SR, separation, model_path=sep_model, device=tracker.device))
         vqts, out["log_vqt_s"] = timed(lambda: best_log_xqt(
             torch.as_tensor(np.stack([anc, pos]), device=tracker.device), XQTParams()))
         fused, out["encoders_s"] = timed(lambda: tracker.model(vqts[0:1, None], vqts[1:2, None]).cpu().numpy()[0])
@@ -404,7 +435,7 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: tracker.track_signal(sig, separation="hpss", decoder="dbn"))
+        _, wall = timed(lambda: tracker.track_signal(sig, separation=separation, sep_model=sep_model, decoder="dbn"))
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     out["profiled_wall_s"] = wall
@@ -1306,6 +1337,332 @@ def phase_evaluate(ds) -> None:
     emit("evaluate", part="done", seconds=time.perf_counter() - t0)
 
 
+def _separator_step_parity() -> None:
+    """One MaskNet train_step at batch 2 on the card and on the CPU from the
+    same seeded params, bank and crops, at the train step's tolerances."""
+    from zeronotesamba_torch.train.separator import CROP_LEN, SeparatorConfig, init_separator_state, synth_bank, train_step
+
+    bank = synth_bank(2, 4.5, seed=5)
+    rng = np.random.default_rng(3)
+    song, offs = rng.integers(0, 2, size=2), rng.integers(0, bank.shape[-1] - CROP_LEN + 1, size=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = init_separator_state(SeparatorConfig(lr=SEP_LR), 0, device=dev)
+        before = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        t0 = time.perf_counter()
+        state, loss = train_step(state, *(torch.as_tensor(a, device=dev) for a in (bank, song, offs)))
+        runs[dev] = dict(loss=float(loss), seconds=time.perf_counter() - t0, before=before,
+                         params={k: v.detach().cpu() for k, v in state.model.named_parameters()},
+                         grads={k: v.grad.cpu() for k, v in state.model.named_parameters()})
+    g, c = runs["cuda"], runs["cpu"]
+    check(all(torch.equal(g["before"][k], c["before"][k]) for k in c["before"]), "seeded separator weights differ")
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    eps = torch.finfo(torch.float32).eps
+    param_excess = max(((g["params"][k] - c["params"][k]).abs() - 2 * SEP_LR - 2 * eps * c["params"][k].abs())
+                       .max().item() for k in c["params"])
+    moved = max((c["params"][k] - c["before"][k]).abs().max().item() for k in c["params"])
+    grad_rel = {k: ((g["grads"][k] - c["grads"][k]).abs().max() / c["grads"][k].abs().max()).item()
+                for k in c["grads"]}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= PARITY_LOSS_RTOL, f"separator step loss card {g['loss']} vs CPU {c['loss']}")
+    check(0.0 < moved and param_excess <= 0.0, f"separator step params card vs CPU exceed 2 lr by {param_excess}")
+    check(grad_rel[worst] <= PARITY_GRAD_REL, f"separator gradient of {worst} card vs CPU {grad_rel[worst]}")
+    emit("separator", part="step_parity", batch=2, frames=256, lr=SEP_LR, loss_card=g["loss"], loss_cpu=c["loss"],
+         loss_rel_err=loss_rel, max_grad_err_of_tensor_max=grad_rel[worst], worst_grad=worst,
+         max_param_excess_over_2lr=param_excess, max_param_step=moved, seconds_card=g["seconds"],
+         seconds_cpu=c["seconds"])
+
+
+def separator_flops(frames: int) -> float:
+    """Forward FLOPs (mul+add = 2) of one MaskNet column of 512 bins x frames:
+    the MACs per (bin, frame) of MASK_SPECS and the 1x1 output conv."""
+    from zeronotesamba_torch.models.separator import MASK_SPECS, N_BINS, N_STEMS
+
+    macs, cin = 0, 1
+    for ch, (kf, kt), _ in MASK_SPECS:
+        macs += kf * kt * cin * ch
+        cin = ch
+    return 2.0 * (macs + cin * N_STEMS) * N_BINS * frames
+
+
+def _separator_throughput() -> None:
+    """MaskNet train steps on the card at batch 8 x 256 frames in float32
+    (the JAX CLI's default batch), crops of a random 8-song 12 s bank on the
+    device: the median of 6 after 2 warm-up, each ended by a loss read."""
+    from zeronotesamba_torch.train.separator import (
+        CROP_FRAMES, CROP_LEN, SeparatorConfig, init_separator_state, train_step,
+    )
+
+    steps, warmup = 6, 2
+    bank = 0.1 * torch.randn(8, 3, int(12 * SR), device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    rng = np.random.default_rng(4)
+    state = init_separator_state(SeparatorConfig(), 0, device="cuda")
+    flops = 3.0 * SEP_BATCH * separator_flops(CROP_FRAMES)  # fwd + bwd
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup + steps):
+        song = torch.as_tensor(rng.integers(0, 8, size=SEP_BATCH), device="cuda")
+        offs = torch.as_tensor(rng.integers(0, bank.shape[-1] - CROP_LEN + 1, size=SEP_BATCH), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_step(state, bank, song, offs)
+        check(math.isfinite(float(loss)), "separator step loss not finite")  # the read syncs
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    emit("separator", part="throughput", dtype="float32", batch=SEP_BATCH, frames=CROP_FRAMES, steps=steps,
+         ms_per_step=ms, step_ms=times, tflop_per_step=flops / 1e12, tflop_per_s=flops / 1e12 / (ms / 1e3),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def _separator_quality() -> None:
+    """The shipped separator's SI-SDR on synth_bank(8, 12 s, 999) on the card:
+    within SEP_SI_SDR_ATOL of the JAX package's, above the card's HPSS."""
+    from zeronotesamba_torch.models.separator import load_separator
+    from zeronotesamba_torch.train.separator import eval_si_sdr, hpss_baseline_si_sdr, synth_bank
+
+    val = synth_bank(8, 12.0, 999)
+    model = load_separator(device="cuda")
+    eval_si_sdr(model, *(torch.as_tensor(val[:1, i], device="cuda") for i in range(3)))  # cuDNN plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learned = [float(v) for v in eval_si_sdr(model, *(torch.as_tensor(val[:, i], device="cuda") for i in range(3)))]
+    eval_s = time.perf_counter() - t0
+    hpss = list(hpss_baseline_si_sdr(val, device="cuda"))
+    gaps = [a - b for a, b in zip(learned, SEP_JAX_SI_SDR)]
+    check(all(abs(d) <= SEP_SI_SDR_ATOL for d in gaps), f"shipped separator SI-SDR {learned} vs JAX {SEP_JAX_SI_SDR}")
+    check(learned[0] > hpss[0] and learned[1] > hpss[1], f"learned SI-SDR {learned} does not beat HPSS {hpss}")
+    emit("separator", part="quality", songs=8, song_s=12.0, si_sdr_drums_rest=learned, jax_si_sdr=SEP_JAX_SI_SDR,
+         gap_vs_jax_db=gaps, hpss_si_sdr_drums_rest=hpss, eval_seconds=eval_s)
+
+
+def _separator_train() -> None:
+    """train_separator for 20 steps on 8 songs, evaluated every 10, on the
+    card: its saved npz reloads equal; then train-separator as a subprocess
+    at the same size."""
+    from zeronotesamba_torch.models.separator import load_separator
+    from zeronotesamba_torch.train.separator import SeparatorConfig, train_separator
+
+    ckpt, cli_ckpt, cli_json = (os.path.join(OUT_DIR, f) for f in ("separator_run.npz", "separator_cli.npz",
+                                                                    "separator_cli.json"))
+    cfg = SeparatorConfig(steps=SEP_TRAIN_STEPS, eval_every=SEP_EVAL_EVERY, checkpoint_path=ckpt)
+    t0 = time.perf_counter()
+    best, hist = train_separator(cfg, train_songs=SEP_TRAIN_SONGS, device="cuda")
+    run_s = time.perf_counter() - t0
+    check(len(hist["loss"]) == SEP_TRAIN_STEPS // SEP_EVAL_EVERY
+          and all(math.isfinite(v) for vals in hist.values() for v in vals), f"train_separator history {hist}")
+    loaded = load_separator(ckpt, device="cpu").state_dict()
+    check(set(loaded) == set(best) and all(torch.equal(loaded[k], best[k]) for k in best),
+          "the saved separator npz does not reload equal")
+    cli_s, stdout = _cli(["train-separator", "--steps", str(SEP_TRAIN_STEPS), "--train-songs", str(SEP_TRAIN_SONGS),
+                          "--checkpoint", cli_ckpt, "--out", cli_json, "--device", "cuda"])
+    report = json.loads(stdout)
+    check(all(math.isfinite(v) for v in report.values()) and os.path.exists(cli_ckpt), f"train-separator {report}")
+    emit("separator", part="train", steps=SEP_TRAIN_STEPS, batch=cfg.batch_size, train_songs=SEP_TRAIN_SONGS,
+         eval_every=SEP_EVAL_EVERY, seconds=run_s, history=hist, cli_seconds=cli_s, cli=report)
+
+
+def _separator_serving(stats: dict, trace: bool) -> None:
+    """The learned serving path: track_signal(separation="learned") with the
+    shipped separator on the main path's 30 s click track, on the card (with
+    the kernel launches of one call counted) and on the CPU; its stages; the
+    infer and track-dir --separation learned CLI against the same tracker
+    in-process."""
+    from zeronotesamba_torch.data import audio_io
+    from zeronotesamba_torch.data.synthetic import click_track
+    from zeronotesamba_torch.infer import BeatTracker
+    from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+
+    sig, _ = click_track(30.0, 120.0, seed=0)
+    kw = dict(separation="learned", sep_model=SEPARATOR_NPZ, decoder="dbn")
+    gpu, cpu = BeatTracker(seed=0, device="cuda"), BeatTracker(seed=0, device="cpu")
+    t0 = time.perf_counter()
+    gpu.track_signal(sig, **kw)  # loads the MaskNet onto the card once
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for counts in (vk.LAUNCHES, dbn_kernel.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    t0 = time.perf_counter()
+    res_g = gpu.track_signal(sig, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = {**vk.LAUNCHES, **dbn_kernel.LAUNCHES}
+    check(launches == {"cascade": 1, "octave": 1, "viterbi": 0}, f"learned path launches {launches}")
+    for kname, n in launches.items():
+        stats[kname]["learned_path_launches"] = n
+    t0 = time.perf_counter()
+    res_c = cpu.track_signal(sig, **kw)
+    cpu_s = time.perf_counter() - t0
+    errs = {f: float(np.abs(getattr(res_g, f) - getattr(res_c, f)).max())
+            for f in ("anchor_pulse", "positive_pulse", "fused_pulse")}
+    check(all(e <= PULSE_ATOL for e in errs.values()), f"learned path pulses card vs CPU {errs}")
+    _beats_match(res_g.beat_times, res_c.beat_times, "learned path card vs CPU")
+    check(len(res_g.beat_times) > 0 and bool(np.isfinite(res_g.vqt).all()), "learned path output")
+
+    wav_dir = os.path.join(OUT_DIR, "learned_wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    wav, out_json = os.path.join(wav_dir, "click_12s.wav"), os.path.join(OUT_DIR, "track_dir_learned.json")
+    audio_io.write_wav(wav, click_track(12.0, 120.0, seed=1)[0], SR)
+    cli_s, stdout = _cli(["infer", wav, "--separation", "learned", "--device", "cuda"])
+    payload = json.loads(stdout.strip().splitlines()[-1])
+    ref = gpu.track_file(wav, **kw)
+    check(payload["n_frames"] == ref.fused_pulse.shape[0], "infer --separation learned n_frames")
+    _beats_match(np.asarray(payload["beat_times"]), ref.beat_times, "infer --separation learned vs in-process")
+    track_dir_s, _ = _cli(["track-dir", wav_dir, "--separation", "learned", "--device", "cuda", "--out", out_json])
+    with open(out_json) as fh:
+        tracked = json.load(fh)
+    check(list(tracked) == ["click_12s.wav"], f"track-dir --separation learned {tracked}")
+    _beats_match(np.asarray(tracked["click_12s.wav"]), ref.beat_times, "track-dir --separation learned vs in-process")
+    breakdown = _stage_breakdown(gpu, sig, trace, separation="learned")
+    emit("separator", part="serving", clip_s=30.0, launches=launches, max_abs_err_card_vs_cpu=errs,
+         n_beats=len(res_g.beat_times), card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
+         masknet_gflop=separator_flops(res_g.fused_pulse.shape[0]) / 1e9, card_breakdown=breakdown,
+         cli=dict(seconds=cli_s, n_frames=payload["n_frames"], n_beats=len(payload["beat_times"]),
+                  track_dir_seconds=track_dir_s))
+
+
+def phase_separator(stats: dict, trace: bool) -> None:
+    t0 = time.perf_counter()
+    _separator_step_parity()
+    _separator_throughput()
+    _separator_quality()
+    _separator_train()
+    _separator_serving(stats, trace)
+    emit("separator", part="done", seconds=time.perf_counter() - t0)
+
+
+def key_tree(doc) -> dict | None:
+    """A JSON document's keys, nested; None at every leaf."""
+    return {k: key_tree(v) for k, v in doc.items()} if isinstance(doc, dict) else None
+
+
+def suite_key_tree(few_shot_sizes, clmr: bool = False) -> dict:
+    """The key tree of the JAX demo suite's summary.json for a run with these
+    few-shot sizes: that of the committed results/synthetic/summary.json,
+    brought up to three changes the JAX demo suite
+    (zeronotesamba_tpu/experiments/demo_suite.py) made after that file was
+    written: ``pretext`` gained ``selection``, ``watchdog_restarts`` and
+    ``proxy_f1_best`` (:270-274); ``supervised.arm_overrides`` went and
+    ``by_decoder.bock`` became ``by_decoder.bock_tcn`` (:319-327); and
+    ``supervised.bock_tcn_note`` came (:330)."""
+    with open(os.path.join(ROOT, "results", "synthetic", "summary.json")) as fh:
+        tree = key_tree(json.load(fh))
+    tree["pretext"].update(selection=None, watchdog_restarts=None, proxy_f1_best=None)
+    sup = tree["supervised"]
+    del sup["arm_overrides"]
+    sup["by_decoder"]["bock_tcn"] = sup["by_decoder"].pop("bock")
+    sup["bock_tcn_note"] = None
+    for arm in tree["few_shot"].values():
+        leaf = next(iter(arm.values()))
+        arm.clear()
+        arm.update({str(s): leaf for s in few_shot_sizes})
+    if not clmr:
+        del tree["clmr"]
+    return tree
+
+
+def _json_leaves(doc, path=""):
+    if isinstance(doc, dict):
+        for k, v in doc.items():
+            yield from _json_leaves(v, f"{path}/{k}")
+    elif isinstance(doc, list):
+        for i, v in enumerate(doc):
+            yield from _json_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, doc
+
+
+def _suite_run(stats: dict) -> str:
+    """run_demo_suite at SUITE's size on the card, with the kernel launches
+    of the whole run counted: one cascade and one octave launch per
+    generate_xqt call, three a corpus song; no Viterbi launch."""
+    import glob
+    import shutil
+
+    from zeronotesamba_torch.experiments.demo_suite import DemoSuiteConfig, run_demo_suite
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+
+    out_dir = os.path.join(OUT_DIR, "suite")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = DemoSuiteConfig(out_dir=out_dir, **SUITE)
+    for counts in (vk.LAUNCHES, dbn_kernel.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    t0 = time.perf_counter()
+    summary = run_demo_suite(cfg, device="cuda")
+    secs = time.perf_counter() - t0
+    launches = {**vk.LAUNCHES, **dbn_kernel.LAUNCHES}
+    songs = cfg.n_songs + cfg.n_songs_b + cfg.pretext_songs + cfg.proxy_songs
+    check(launches == {"cascade": 3 * songs, "octave": 3 * songs, "viterbi": 0},
+          f"suite launches {launches}, expected {3 * songs} of each VQT kernel (3 a corpus song)")
+    for kname, n in launches.items():
+        stats[kname]["suite_launches"] = n
+    for ckpt in glob.glob(os.path.join(out_dir, "*.pth")):  # the pretext twin's weights, ~100 MB each
+        os.remove(ckpt)
+    bad = [(p, v) for p, v in _json_leaves(summary)
+           if not isinstance(v, str) and not (isinstance(v, (int, float)) and math.isfinite(v))]
+    check(not bad, f"suite results not finite: {bad}")
+    f1 = {p: v for p, v in _json_leaves(summary) if "f1" in p.rsplit("/", 1)[-1].lower()}
+    check(f1 and all(0.0 <= v <= 1.0 for v in f1.values()), f"suite F1 outside [0, 1]: {f1}")
+    expected = suite_key_tree(cfg.few_shot_sizes)
+    check(key_tree(summary) == expected, f"suite key tree {key_tree(summary)} != {expected}")
+    emit("suite", part="run", config=SUITE, corpus_songs=songs, seconds=secs, launches=launches,
+         summary={k: v for k, v in summary.items() if k != "supervised"},
+         supervised={k: v["F1"] for k, v in summary["supervised"].items() if isinstance(v, dict) and "F1" in v})
+    return out_dir
+
+
+def _suite_checks(out_dir: str) -> None:
+    """export-xlsx on the suite's output as a subprocess; resample_device
+    card vs CPU at 44.1 -> 16 kHz; the card's log-VQT (both kernels) against
+    the direct float64 oracle on a 3 s click track, at the JAX package's
+    tests/test_vqt.py limits."""
+    from zeronotesamba_torch.data.synthetic import click_track
+    from zeronotesamba_torch.ops.filterbank import XQTParams
+    from zeronotesamba_torch.ops.oracle import MULTIRATE_LIMITS, multirate_errors, xqt_direct
+    from zeronotesamba_torch.ops.resample import resample_device
+    from zeronotesamba_torch.ops.vqt import best_log_xqt
+
+    xlsx_s, stdout = _cli(["export-xlsx", "--src", out_dir, "--out", os.path.join(out_dir, "xlsx")])
+    manifest = json.loads(stdout)
+    wanted = ["unsupervised.xlsx", "cross_data.xlsx", "few_shot.xlsx", "measures.xlsx", "beat_tracking.xlsx"]
+    check(manifest["written"] == wanted and all(os.path.getsize(os.path.join(out_dir, "xlsx", f)) > 0
+                                               for f in wanted), f"export-xlsx {manifest}")
+
+    y = torch.tensor(np.random.default_rng(6).uniform(-1.0, 1.0, (2, 3 * 44100)).astype(np.float32))
+    y_card = y.cuda()
+    got = resample_device(y_card, 44100, SR)
+    ref = resample_device(y, 44100, SR)
+    rs_err = float((got.cpu() - ref).abs().max())
+    check(got.is_cuda and got.shape == ref.shape == (2, 3 * SR) and rs_err <= RESAMPLE_ATOL,
+          f"resample_device card vs CPU {rs_err}")
+    rs_ms = time_ms(lambda: resample_device(y_card, 44100, SR), n=10)
+
+    oracle = {}
+    sig = click_track(3.0, 120.0, seed=3)[0]
+    for mode in ("vqt", "cqt"):
+        p = XQTParams(mode=mode)
+        with torch.inference_mode():
+            card = best_log_xqt(torch.tensor(sig, device="cuda")[None], p)[0].double().cpu().numpy()
+        oracle[mode] = multirate_errors(np.exp(card) - p.log_eps, xqt_direct(sig, p), p)
+        check(all(oracle[mode][k] < lim for k, lim in MULTIRATE_LIMITS.items()),
+              f"card log-{mode} vs the direct oracle {oracle[mode]} (limits {MULTIRATE_LIMITS})")
+    emit("suite", part="checks", export_xlsx=dict(seconds=xlsx_s, written=manifest["written"]),
+         resample=dict(shape=list(got.shape), max_abs_err_card_vs_cpu=rs_err, event_ms=rs_ms),
+         oracle=oracle, oracle_limits=MULTIRATE_LIMITS)
+
+
+def phase_suite(stats: dict) -> None:
+    t0 = time.perf_counter()
+    out_dir = _suite_run(stats)
+    _suite_checks(out_dir)
+    emit("suite", part="done", seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -1322,6 +1679,8 @@ def main() -> None:
     ds = phase_train(stats)
     phase_pretext(stats)
     phase_evaluate(ds)
+    phase_separator(stats, args.trace)
+    phase_suite(stats)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         s = stats.pop(name)

@@ -16,6 +16,7 @@ import csv
 import dataclasses
 import functools
 import json
+import os
 
 import jax
 import numpy as np
@@ -39,10 +40,13 @@ from zeronotesamba_torch.experiments import cross, few_shot, measures
 from zeronotesamba_torch.experiments.beat import BeatExperimentConfig
 from zeronotesamba_torch.experiments.config import DATASETS, ZNSConfig
 from zeronotesamba_torch.infer import BeatTracker
+from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
 from zeronotesamba_torch.train.checkpoint import save_params
 from zeronotesamba_torch.utils.xlsx import read_xlsx
 
 torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SMOOTH = ("l2_l1", "gini", "kurtosis", "max_acf")
 METRICS = ("F1", "CMLc", "CMLt", "AMLc", "AMLt", "InfoGain")
@@ -414,9 +418,26 @@ def test_cli_track_dir_on_cpu(wav_dir, tmp_path, decoder):
     assert res["short_1.wav"] == [float(t) for t in ref.beat_times]
 
 
-def test_cli_unported_subcommands_raise(wav_dir, tmp_path):
-    for argv in (["train-separator", "--steps", "1"], ["demo-suite", "--songs", "2"], ["export-xlsx"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["infer", str(wav_dir / "audio" / "click_0.wav"), "--separation", "learned", "--device", "cpu"])
+def test_cli_learned_separation_on_cpu(wav_dir, tmp_path, capsys):
+    """infer and track-dir with --separation learned, on the shipped separator
+    by default, against the in-process tracker; an orbax directory as
+    --sep-model is refused per file, naming the exporter."""
+    wav = str(wav_dir / "audio" / "click_0.wav")
+    params = str(tmp_path / "w.npz")
+    tracker = BeatTracker(seed=4, device="cpu")
+    save_params(params, tracker.model)
+    ref = tracker.track_file(wav, separation="learned", sep_model=SEPARATOR_NPZ, decoder="dbn")
+    cli.main(["infer", wav, "--params", params, "--separation", "learned", "--device", "cpu"])
+    payload = json.loads(capsys.readouterr().out)
+    assert payload == {"n_frames": ref.fused_pulse.shape[0], "beat_times": [float(t) for t in ref.beat_times]}
+
+    out = str(tmp_path / "beats.json")
+    short = str(wav_dir / "audio" / "short")
+    cli.main(["track-dir", short, "--params", params, "--separation", "learned", "--sep-model", SEPARATOR_NPZ,
+              "--device", "cpu", "--out", out])
+    res = _results(out)
+    ref = tracker.track_file(os.path.join(short, "short_0.wav"), separation="learned", sep_model=SEPARATOR_NPZ)
+    assert sorted(res) == ["short_0.wav", "short_1.wav"] and res["short_0.wav"] == [float(t) for t in ref.beat_times]
+    cli.main(["track-dir", short, "--separation", "learned", "--sep-model", os.path.join(ROOT, "models", "separator"),
+              "--device", "cpu", "--out", out])
+    assert all("test_torch_separator_export" in v["error"] for v in _results(out).values())

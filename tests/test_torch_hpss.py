@@ -18,6 +18,7 @@ from zeronotesamba_tpu.ops.resample import resample_poly_host as j_resample
 from zeronotesamba_torch.data import audio_io
 from zeronotesamba_torch.data.separation import separate
 from zeronotesamba_torch.data.synthetic import click_track
+from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
 from zeronotesamba_torch.ops.hpss import _stft, hpss, hpss_host
 from zeronotesamba_torch.ops.resample import resample_poly_host
 
@@ -68,8 +69,12 @@ def test_separation_backends(tmp_path):
     ref = j_separate(sig, 16000, backend="stems", stem_dir=stem_dir)
     for o, r in zip(ours, ref):
         np.testing.assert_array_equal(o, r)
-    with pytest.raises(NotImplementedError):
+    # The learned backend reads an npz of the MaskNet's Flax tree; the JAX
+    # package's orbax directory is refused, naming the exporter.
+    with pytest.raises(ValueError, match="test_torch_separator_export"):
         separate(sig, 16000, backend="learned", model_path="models/separator", device="cpu")
+    anchor, positive = separate(sig, 16000, backend="learned", model_path=SEPARATOR_NPZ, device="cpu")
+    assert anchor.shape == positive.shape == sig.shape
     with pytest.raises(ValueError):
         separate(sig, 16000, backend="stems", device="cpu")
     with pytest.raises(ValueError):

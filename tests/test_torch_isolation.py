@@ -79,7 +79,12 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     from zeronotesamba_torch.infer import BeatTracker
     from zeronotesamba_torch.ops.hpss import hpss_host
     from zeronotesamba_torch.ops.vqt import generate_xqt
+    from zeronotesamba_torch.experiments.demo_suite import DemoSuiteConfig, run_demo_suite
+    from zeronotesamba_torch.models.separator import load_separator
     from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state
+    from zeronotesamba_torch.train.separator import (
+        SeparatorConfig, hpss_baseline_si_sdr, init_separator_state, train_separator,
+    )
 
     sig = np.zeros(4000, np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -97,22 +102,32 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
                  lambda: build_bank_from_stem_root(str(tmp_path), 1),
                  lambda: mine_stems(str(tmp_path), str(tmp_path / "out")),
                  lambda: gen_clmr_bank(str(tmp_path), 1),
-                 lambda: cli.main(["pretext", "--bank", str(tmp_path / "bank.npz"), "--epochs", "1"])):
+                 lambda: cli.main(["pretext", "--bank", str(tmp_path / "bank.npz"), "--epochs", "1"]),
+                 lambda: load_separator(),
+                 lambda: init_separator_state(SeparatorConfig(), 0),
+                 lambda: train_separator(SeparatorConfig(steps=1), train_songs=1, val_songs=1, duration_s=4.2),
+                 lambda: hpss_baseline_si_sdr(np.zeros((1, 3, 4000), np.float32)),
+                 lambda: run_demo_suite(DemoSuiteConfig(out_dir=str(tmp_path / "suite"), n_songs=1)),
+                 lambda: cli.main(["train-separator", "--steps", "1", "--checkpoint", str(tmp_path / "s.npz")]),
+                 lambda: cli.main(["infer", str(tmp_path / "x.wav"), "--separation", "learned"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
-    """Every CUDA source and the native DBN's C++ source are declared package
-    data, and a copy that lacks them says so before it tries to build."""
+    """Every CUDA source, the native DBN's C++ source and the shipped
+    separator's weights are declared package data, and a copy that lacks a
+    source says so before it tries to build."""
     import tomllib
 
     from zeronotesamba_torch.decode import dbn_native
+    from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
     from zeronotesamba_torch.ops.cuda import build
 
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
         data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["zeronotesamba_torch"]
-    assert data == ["csrc/*.cu", "csrc/*.cpp"]
+    assert data == ["csrc/*.cu", "csrc/*.cpp", "assets/*.npz"]
+    assert os.path.relpath(SEPARATOR_NPZ, PKG) == os.path.join("assets", "separator.npz") and os.path.isfile(SEPARATOR_NPZ)
     assert all((build.CSRC / f"{name}.cu").is_file() for name in build.SOURCES)
     assert dbn_native.SOURCE.is_file() and dbn_native.SOURCE.parent == build.CSRC
     monkeypatch.setattr(build, "CSRC", tmp_path)

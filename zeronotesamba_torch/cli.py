@@ -14,10 +14,16 @@ take ``--device`` (default ``cuda``; ``cpu`` to run on the CPU):
     infer        one file -> pulse + beats (JSON on stdout)
     resave       re-sample every wav under a directory tree (host only)
     track-dir    batch-track every wav in a directory
+    train-separator  train the learned drum/rest mask separator -> an .npz
+    demo-suite   the full experiment grid on synthetic corpora
+    export-xlsx  render a results directory's JSONs as the six workbooks (host only)
 
-``train-separator``, ``demo-suite`` and ``export-xlsx`` parse the JAX CLI's
-flags and raise NotImplementedError: they wait for the learned separator
-and the rest of the reporting (ROADMAP "Modules to port", items 9 and 11).
+Where the JAX CLI's default path holds committed files, the port's default
+is a git-ignored one: ``train-separator --checkpoint``
+(models/separator_torch.npz), ``demo-suite --out``
+(results/synthetic_torch) and ``export-xlsx --out``
+(results/synthetic_torch/xlsx). ``--sep-model`` defaults to the shipped
+separator exported to ``zeronotesamba_torch/assets/separator.npz``.
 """
 
 from __future__ import annotations
@@ -26,12 +32,6 @@ import argparse
 import json
 
 DEVICE_HELP = "torch device (default cuda; 'cpu' to run on the CPU)"
-NOT_PORTED = {
-    "train-separator": "train-separator (the learned MaskNet separator) is not ported yet "
-                       "(ROADMAP 'Modules to port', item 9)",
-    "demo-suite": "demo-suite is not ported yet (ROADMAP 'Modules to port', item 11)",
-    "export-xlsx": "export-xlsx (experiments/report_xlsx.py) is not ported yet (ROADMAP 'Modules to port', item 11)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -148,29 +148,35 @@ def build_parser() -> argparse.ArgumentParser:
     rs.add_argument("--out", required=True, help="output root (structure preserved)")
     rs.add_argument("--rate", type=int, default=44100, help="target sample rate")
 
-    # Not ported yet: the JAX CLI's flags, then NotImplementedError (main).
-    ts = sub.add_parser("train-separator", help="train the learned drum/rest mask separator (not ported yet)")
+    ts = sub.add_parser("train-separator", help="train the learned drum/rest mask separator")
     ts.add_argument("--steps", type=int, default=1500)
     ts.add_argument("--batch-size", type=int, default=8)
     ts.add_argument("--lr", type=float, default=3e-4)
     ts.add_argument("--train-songs", type=int, default=40)
     ts.add_argument("--val-songs", type=int, default=8)
-    ts.add_argument("--checkpoint", default="models/separator")
-    ts.add_argument("--out", default=None)
+    ts.add_argument("--checkpoint", default="models/separator_torch.npz",
+                    help="best-SI-SDR params, an .npz of the MaskNet's Flax tree")
+    ts.add_argument("--out", default=None, help="write the SI-SDR report JSON here")
     ts.add_argument("--seed", type=int, default=0)
-    d = sub.add_parser("demo-suite", help="reproduce the full experiment grid on synthetic data (not ported yet)")
-    d.add_argument("--out", default="results/synthetic")
+    ts.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    d = sub.add_parser("demo-suite", help="reproduce the full experiment grid on synthetic data")
+    d.add_argument("--out", default="results/synthetic_torch")
     d.add_argument("--songs", type=int, default=24)
     d.add_argument("--pretext-epochs", type=int, default=120)
     d.add_argument("--max-epochs", type=int, default=60)
     d.add_argument("--folds", type=int, default=4)
-    d.add_argument("--clmr", action="store_true")
-    d.add_argument("--difficulty", type=float, default=1.0)
-    d.add_argument("--pretext-selection", default="proxy_f1", choices=["proxy_f1", "val_loss"])
+    d.add_argument("--clmr", action="store_true", help="also run the CLMR pretext + finetune arm")
+    d.add_argument("--difficulty", type=float, default=1.0,
+                   help="corpus hardness scale (0 = clean corpora)")
+    d.add_argument("--pretext-selection", default="proxy_f1", choices=["proxy_f1", "val_loss"],
+                   help="pretext checkpoint selection: beat-proxy F1 or reference-parity val loss")
     d.add_argument("--seed", type=int, default=0)
-    x = sub.add_parser("export-xlsx", help="render evidence JSONs as the reference's workbooks (not ported yet)")
+    d.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    x = sub.add_parser("export-xlsx", help="render evidence JSONs as the reference's six results workbooks")
     x.add_argument("--src", default="results/synthetic")
-    x.add_argument("--out", default="results/synthetic/xlsx")
+    x.add_argument("--out", default="results/synthetic_torch/xlsx")
 
     td = sub.add_parser("track-dir", help="batch-track every wav in a directory")
     td.add_argument("audio_dir")
@@ -182,9 +188,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _add_tracking(p: argparse.ArgumentParser) -> None:
     """The separation, decoder and device flags of infer and track-dir."""
-    p.add_argument("--separation", default="hpss", choices=["hpss", "stems", "learned", "mix"],
-                   help="'learned' is not ported yet and raises")
-    p.add_argument("--sep-model", default="models/separator", help="mask-net params (--separation learned)")
+    p.add_argument("--separation", default="hpss", choices=["hpss", "stems", "learned", "mix"])
+    p.add_argument("--sep-model", default=None,
+                   help="mask-net params for --separation learned, an .npz of its Flax tree "
+                        "(default: the shipped zeronotesamba_torch/assets/separator.npz)")
     p.add_argument("--decoder", default="dbn", choices=["dbn", "librosa", "threshold"])
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
@@ -281,8 +288,40 @@ def main(argv=None):
         print(json.dumps({"checkpoint": args.checkpoint, "epochs": len(hist["val_loss"]),
                           "best_val_loss": min(hist["val_loss"]), "restarts": hist["restarts"]}))
 
-    elif args.cmd in ("train-separator", "demo-suite", "export-xlsx"):
-        raise NotImplementedError(NOT_PORTED[args.cmd])
+    elif args.cmd == "train-separator":
+        from zeronotesamba_torch.train.separator import (
+            SeparatorConfig, hpss_baseline_si_sdr, synth_bank, train_separator,
+        )
+
+        cfg = SeparatorConfig(steps=args.steps, batch_size=args.batch_size, lr=args.lr,
+                              seed=args.seed, checkpoint_path=args.checkpoint)
+        _, hist = train_separator(cfg, train_songs=args.train_songs, val_songs=args.val_songs, device=args.device)
+        base_d, base_r = hpss_baseline_si_sdr(synth_bank(args.val_songs, 12.0, args.seed + 999), device=args.device)
+        payload = {
+            "learned_si_sdr_drums": max(hist["si_sdr_drums"]),
+            "learned_si_sdr_rest": max(hist["si_sdr_rest"]),
+            "hpss_si_sdr_drums": base_d,
+            "hpss_si_sdr_rest": base_r,
+            "history": hist,
+        }
+        print(json.dumps({k: v for k, v in payload.items() if k != "history"}, indent=2))
+        _dump(args.out, payload)
+
+    elif args.cmd == "demo-suite":
+        from zeronotesamba_torch.experiments.demo_suite import DemoSuiteConfig, run_demo_suite
+
+        cfg = DemoSuiteConfig(
+            out_dir=args.out, n_songs=args.songs, pretext_epochs=args.pretext_epochs,
+            max_epochs=args.max_epochs, folds=args.folds, clmr=args.clmr,
+            difficulty=args.difficulty, seed=args.seed,
+            pretext_selection=args.pretext_selection,
+        )
+        print(json.dumps(run_demo_suite(cfg, device=args.device), indent=2))
+
+    elif args.cmd == "export-xlsx":
+        from zeronotesamba_torch.experiments.report_xlsx import export
+
+        print(json.dumps(export(args.src, args.out)))
 
     elif args.cmd == "old-school":
         import os
@@ -358,7 +397,7 @@ def main(argv=None):
 
         tracker = BeatTracker(_load_params(args.params), device=args.device)
         res = tracker.track_file(args.audio, separation=args.separation, decoder=args.decoder,
-                                 sep_model=args.sep_model if args.separation == "learned" else None)
+                                 sep_model=_sep_model(args))
         payload = {
             "n_frames": int(res.fused_pulse.shape[0]),
             "beat_times": [float(t) for t in (res.beat_times if res.beat_times is not None else [])],
@@ -399,7 +438,7 @@ def main(argv=None):
             try:
                 res = tracker.track_file(os.path.join(args.audio_dir, f), separation=args.separation,
                                          decoder=args.decoder,
-                                         sep_model=args.sep_model if args.separation == "learned" else None)
+                                         sep_model=_sep_model(args))
                 results[f] = [float(t) for t in res.beat_times]
             except (ValueError, OSError) as e:
                 results[f] = {"error": str(e)}
@@ -407,8 +446,18 @@ def main(argv=None):
         print(f"tracked {len(results)} files -> {args.out}")
 
 
+def _sep_model(args):
+    """The mask-net params of --separation learned: --sep-model, or the shipped npz."""
+    if args.separation != "learned":
+        return None
+    from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
+
+    return args.sep_model or SEPARATOR_NPZ
+
+
 def _load_params(path):
-    """A weights file (.pth or .npz) in the reference key names, or None."""
+    """A weights file, or None: a .pth or .npz in the reference key names, or
+    an .npz of a Flax tree (models/weights.load_state_dict_file)."""
     if not path:
         return None
     from zeronotesamba_torch.models.weights import load_state_dict_file

@@ -5,10 +5,10 @@ Port of zeronotesamba_tpu/data/separation.py with the backends
 - ``stems``: pre-separated 4-stem WAVs ``<stem_dir>/{bass,drums,other,vocals}.wav``;
 - ``hpss``: median-filter HPSS (ops/hpss.py) on ``device``, the percussive
   stream standing in for drums;
+- ``learned``: the trained STFT-mask separator (models/separator.py, trained
+  by train/separator.py) on ``device``, from an ``.npz`` of its Flax tree
+  (the shipped ``models/separator.SEPARATOR_NPZ`` by default on the CLI);
 - ``mix``: anchor = positive = mix.
-
-The ``learned`` backend needs the JAX package's orbax separator checkpoint
-and is not ported yet (ROADMAP "Modules to port", item 9).
 """
 
 from __future__ import annotations
@@ -37,6 +37,21 @@ def load_stem_dir(track_dir: str, target_sr: int = 16000) -> Dict[str, np.ndarra
     return {k: v[:n] for k, v in stems.items()}
 
 
+_LEARNED_MODEL_CACHE: Dict[tuple, object] = {}
+
+
+def _learned_model(model_path: str, device):
+    """The MaskNet of ``model_path`` on ``device``, loaded once per (path,
+    device): a track-dir sweep calls ``separate`` once per file."""
+    from zeronotesamba_torch.device import resolve_device
+    from zeronotesamba_torch.models.separator import load_separator
+
+    key = (os.path.abspath(model_path), str(resolve_device(device)))
+    if key not in _LEARNED_MODEL_CACHE:
+        _LEARNED_MODEL_CACHE[key] = load_separator(key[0], device=key[1])
+    return _LEARNED_MODEL_CACHE[key]
+
+
 def separate(
     signal: np.ndarray,
     sr: int,
@@ -57,10 +72,12 @@ def separate(
         harmonic, percussive = hpss_host(signal, device=device)
         return harmonic, percussive
     if backend == "learned":
-        raise NotImplementedError(
-            "separation backend 'learned' is not ported yet: it needs the orbax separator "
-            "checkpoint (ROADMAP 'Modules to port', item 9)"
-        )
+        if model_path is None:
+            raise ValueError("backend='learned' requires model_path (train via `train-separator`)")
+        from zeronotesamba_torch.train.separator import separate_learned
+
+        drums, rest = separate_learned(signal, _learned_model(model_path, device))
+        return rest, drums  # (anchor=rest-of-signal, positive=drums)
     if backend == "mix":
         sig = np.asarray(signal, dtype=np.float32)
         return sig, sig.copy()

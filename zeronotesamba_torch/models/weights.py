@@ -17,7 +17,14 @@ Per branch: ``pretrained.cv{i}.weight`` (cout, cin, kh, kw) <- Flax
 params' layout and converts the same way.
 
 A ``BockTCN`` tree (``front1``.., ``tcn_d{d}``, ``head``) keeps its Flax
-names (``bock_state_dict_from_jax``).
+names (``bock_state_dict_from_jax``). A ``MaskNet`` tree (``Conv_0``..
+``Conv_5``) maps onto ``convs.0``..``convs.5`` (``separator_state_dict_from_jax``).
+
+A Flax tree on disk is an ``.npz`` of its leaves under their key paths
+joined by ``/`` (``params/Conv_0/kernel``, ...), float32: what the exporter
+in tests/test_torch_separator_export.py writes from an orbax checkpoint, and
+``np.savez(path, **flatten_flax(tree))`` writes. ``load_state_dict_file``
+reads such a file through ``state_dict_from_jax``.
 """
 
 from __future__ import annotations
@@ -69,11 +76,38 @@ def bock_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     return sd
 
 
-def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax DSCNN / TwinPretext / FusedDownstream / BockTCN params (numpy
-    leaves, with or without the ``params`` wrapper) -> the matching port
-    model's state dict (module docstring)."""
+def separator_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax MaskNet params (with or without the ``params`` wrapper) -> the
+    port MaskNet's state dict: ``Conv_i.kernel`` (kh, kw, in, out) ->
+    ``convs.i.weight`` (out, in, kh, kw), biases as they are."""
     p = params["params"] if "params" in params else params
+    sd = {}
+    for name, conv in p.items():
+        i = int(name[len("Conv_"):])
+        sd[f"convs.{i}.weight"] = np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1)
+        sd[f"convs.{i}.bias"] = np.asarray(conv["bias"], np.float32)
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def separator_jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``separator_state_dict_from_jax``: a MaskNet state
+    dict -> its Flax params tree of numpy arrays, with the ``params`` wrapper."""
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in sd.items():
+        _, i, leaf = key.split(".")
+        a = v.detach().cpu().numpy().astype(np.float32)
+        tree.setdefault(f"Conv_{i}", {})["kernel" if leaf == "weight" else "bias"] = (
+            a.transpose(2, 3, 1, 0) if leaf == "weight" else a)
+    return {"params": tree}
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax DSCNN / TwinPretext / FusedDownstream / BockTCN / MaskNet params
+    (numpy leaves, with or without the ``params`` wrapper) -> the matching
+    port model's state dict (module docstring)."""
+    p = params["params"] if "params" in params else params
+    if "Conv_0" in p:
+        return separator_state_dict_from_jax(p)
     if "front1" in p:
         return bock_state_dict_from_jax(p)
     if "pretext" in p:
@@ -111,11 +145,38 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in src.state_dict().items()}
 
 
+def flatten_flax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested Flax tree -> {``a/b/leaf``: float32 array}."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            flat.update(flatten_flax(leaf, f"{prefix}{name}/"))
+        else:
+            flat[prefix + name] = np.asarray(leaf, np.float32)
+    return flat
+
+
+def unflatten_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """{``a/b/leaf``: array} -> the nested Flax tree."""
+    tree: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        *parents, name = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """Read a ``.pth`` or ``.npz`` in the reference key names
-    (``anchor.pretrained.cv1.weight``, ..., ``postve.fc1.bias``)."""
+    (``anchor.pretrained.cv1.weight``, ..., ``postve.fc1.bias``), or an
+    ``.npz`` of a Flax tree (keys with ``/``), converted by
+    ``state_dict_from_jax``."""
     if path.endswith(".npz"):
         with np.load(path) as data:
+            if any("/" in k for k in data.files):
+                return state_dict_from_jax(unflatten_flax({k: data[k] for k in data.files}))
             return {k: torch.tensor(data[k]) for k in data.files}
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)

@@ -7,8 +7,11 @@ and step counts), the step and the caller's metrics, one file per step.
 ``save_params`` is the light "best params" slot, written in the reference
 key names so it loads as it is into ``infer --params``.
 
-The JAX package writes orbax directories, which this module does not read:
-that waits for the export tool of ROADMAP "Modules to port", item 9.
+The JAX package writes orbax directories, which the port does not read (it
+imports no orbax). Their params trees go through the exporter in
+tests/test_torch_separator_export.py (``export_params_npz``) into an
+``.npz`` of ``/``-joined Flax key paths, which ``load_params`` reads and
+converts (models/weights.state_dict_from_jax).
 """
 
 from __future__ import annotations
@@ -90,5 +93,6 @@ def save_params(path: str, model: torch.nn.Module):
 
 
 def load_params(path: str) -> dict:
-    """The state dict ``save_params`` wrote (models/weights.load_state_dict_file)."""
+    """The state dict ``save_params`` wrote, or that of an exported Flax
+    tree's ``.npz`` (models/weights.load_state_dict_file)."""
     return load_state_dict_file(os.path.abspath(path))
