@@ -51,6 +51,16 @@ Phases, each printing one JSON line:
                  finite results, F1 in [0, 1], the JAX suite's key tree), the
                  export-xlsx CLI on its output, resample_device card vs CPU, and
                  the card's log-VQT against the direct float64 oracle.
+12. mesh      -- data parallelism over torch.distributed, one JSON line per part,
+                 at full width (the twin, batch 16 x 313, float32, TF32 off): on
+                 a world of one NCCL rank in this process the track-parallel
+                 step (k = 2, dropout on) against the single-device step, both
+                 timed, and ntxent_global against ntxent; two gloo ranks sharing
+                 the card (run_ranks) against the single-rank k = 4 step and
+                 ntxent on the global batch; pretext --data-parallel
+                 --stem-root on phase 8's stems as a subprocess (one NCCL rank
+                 a card), the VQT launches of its bank build as its rank 0
+                 counts and prints them, and infer --params with its checkpoint.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -146,6 +156,13 @@ SEP_TRAIN_STEPS, SEP_TRAIN_SONGS, SEP_EVAL_EVERY = 20, 8, 10
 SUITE = dict(n_songs=8, n_songs_b=6, pretext_songs=12, pretext_epochs=3, folds=2, max_epochs=3, patience=3,
              few_shot_sizes=(1, 2), few_shot_repeats=1, few_shot_max_epochs=3, proxy_songs=2, seed=0)
 RESAMPLE_ATOL = 1e-4  # resample_device card vs CPU, on a signal of peak 1
+MESH_ONE_RANK_ATOL = 1e-7  # a one-rank NCCL mesh step vs the single-device step (cuDNN deterministic)
+# Two gloo ranks on one card vs the single-rank k = 4 step: loss and cosines
+# 1e-5 relative (tighter than the card-vs-CPU step's 1e-4), gradients
+# PARITY_GRAD_REL of each tensor's largest, params 2 lr plus rounding.
+MESH_LOSS_RTOL = 1e-5
+MESH_NTX_GRAD_ATOL = 1e-6  # ntxent_global's gradients vs ntxent on the global batch (tests/test_ntxent.py)
+MESH_SHARD = 2  # stem-bank tracks a rank in the two-rank step
 
 
 def out_line(line: str) -> None:
@@ -1064,7 +1081,8 @@ def _pretext_cli(bank: np.ndarray) -> None:
     os.remove(ckpt)  # 107 MB of twin weights, checked above
 
 
-def phase_pretext(stats: dict) -> None:
+def phase_pretext(stats: dict) -> np.ndarray:
+    """The pretext phase; returns the stem bank."""
     t0 = time.perf_counter()
     bank = _pretext_bank(stats)
     _pretext_step_parity(bank)
@@ -1072,6 +1090,7 @@ def phase_pretext(stats: dict) -> None:
     _pretext_run(bank)
     _pretext_cli(bank)
     emit("pretext", part="done", seconds=time.perf_counter() - t0)
+    return bank
 
 
 def _decode_batch(pulse: np.ndarray):
@@ -1663,6 +1682,206 @@ def phase_suite(stats: dict) -> None:
     emit("suite", part="done", seconds=time.perf_counter() - t0)
 
 
+def _mesh_step_inputs(bank: np.ndarray, world: int, k: int, batch: int) -> tuple:
+    """Rank-local track indices (world*k,), their global rows, and starts."""
+    rng = np.random.default_rng(4)
+    local = rng.integers(0, MESH_SHARD, size=(world, k))
+    starts = np.stack([rng.choice(bank.shape[-1] - PRETEXT_CROP + 1, size=batch, replace=False)
+                       for _ in range(world * k)])
+    return local.reshape(-1), (np.arange(world)[:, None] * MESH_SHARD + local).reshape(-1), starts
+
+
+def _np_params(model) -> tuple:
+    return ({k: v.detach().cpu().numpy() for k, v in model.named_parameters()},
+            {k: v.grad.cpu().numpy() for k, v in model.named_parameters()})
+
+
+def _mesh_one_rank(bank: np.ndarray, smi: str) -> None:
+    """A world of one NCCL rank in this process: the track-parallel staged
+    step (k = 2, dropout on, cuDNN deterministic) against the single-device
+    step from the same seeded twin, each then timed with CUDA events;
+    the one flattened gradient all-reduce timed alone; ntxent_global
+    against ntxent."""
+    from zeronotesamba_torch.losses.ntxent import ntxent, ntxent_global
+    from zeronotesamba_torch.parallel.launch import single_rank
+    from zeronotesamba_torch.parallel.mesh import all_reduce_grads
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_staged_train_step
+    from zeronotesamba_torch.train.supervised import dropout_generator
+
+    cfg = PretextConfig(batch_size=16, crop_frames=PRETEXT_CROP, lr=1e-5)
+    local, _, starts = _mesh_step_inputs(bank, 1, 2, cfg.batch_size)
+    bank_dev = torch.as_tensor(bank[:MESH_SHARD], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    emb = [torch.rand(32, PRETEXT_CROP, device="cuda", generator=g) for _ in range(2)]  # pulse-like, in (0, 1)
+    torch.backends.cudnn.deterministic = True
+    runs, ms = {}, {}
+    try:
+        with single_rank("nccl", "cuda:0") as mesh:
+            for name, m in (("plain", None), ("mesh", mesh)):
+                state = init_pretext_state(cfg, 0, device="cuda")
+                step = make_staged_train_step(cfg, m)
+                _, loss, pc, nc = step(state, bank_dev, local, starts, dropout_generator(1, 0, "cuda"))
+                runs[name] = ([loss.item(), pc.item(), nc.item()], _np_params(state.model)[0])
+                ms[name] = time_ms(lambda: step(state, bank_dev, local, starts, dropout_generator(1, 1, "cuda")),
+                                   n=3, warmup=1)
+            params = list(state.model.parameters())
+            ms["grad_all_reduce"] = time_ms(lambda: all_reduce_grads(params, mesh), n=20)
+            n_grad = sum(p.numel() for p in params)
+            ntx = {}
+            for name, fn in (("ntxent", lambda a, p: ntxent(a, p, cfg.temperature)),
+                             ("global", lambda a, p: ntxent_global(a, p, cfg.temperature, mesh.group))):
+                a, p = (e.clone().requires_grad_(True) for e in emb)
+                vals = fn(a, p)
+                vals[0].backward()
+                ntx[name] = ([v.item() for v in vals], a.grad.cpu().numpy(), p.grad.cpu().numpy())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (v0, p0), (v1, p1) = runs["plain"], runs["mesh"]
+    step_err = max([abs(a - b) for a, b in zip(v0, v1)] + [float(np.abs(p1[k] - p0[k]).max()) for k in p0])
+    check(step_err <= MESH_ONE_RANK_ATOL, f"one-rank mesh step vs single device: {step_err} > {MESH_ONE_RANK_ATOL}")
+    nv, ng = ntx["ntxent"], ntx["global"]
+    ntx_rel = max(abs(a - b) / abs(a) for a, b in zip(nv[0], ng[0]))
+    ntx_grad = max(float(np.abs(nv[i] - ng[i]).max()) for i in (1, 2))
+    check(ntx_rel <= MESH_LOSS_RTOL and ntx_grad <= MESH_NTX_GRAD_ATOL,
+          f"ntxent_global at world 1 vs ntxent: {ntx_rel} relative, gradients {ntx_grad}")
+    emit("mesh", part="one_rank", backend="nccl", world=1, tracks=2, batch=cfg.batch_size, crop=PRETEXT_CROP,
+         dropout=cfg.dropout_rate, loss=v1[0], max_abs_err_mesh_vs_single=step_err, bitwise=step_err == 0.0,
+         step_ms_single=ms["plain"], step_ms_mesh=ms["mesh"], mesh_minus_single_ms=ms["mesh"] - ms["plain"],
+         grad_all_reduce_ms=ms["grad_all_reduce"], grad_floats=n_grad, ntxent_global_rel_err=ntx_rel,
+         ntxent_global_grad_err=ntx_grad, card=smi)
+
+
+def _mesh_rank(mesh, t_spawn, bank, local, starts, a, p):
+    """One rank of the two gloo ranks sharing the card: ntxent_global on its
+    rows of (a, p), and the track-parallel staged step (dropout 0) on its
+    shard of ``bank``; numpy results, with the wall-clock seconds since
+    ``t_spawn`` at which each stage ended."""
+    timeline = {"in_process_group": time.time() - t_spawn}
+    from zeronotesamba_torch.device import disable_tf32
+    from zeronotesamba_torch.losses.ntxent import ntxent_global
+    from zeronotesamba_torch.parallel.mesh import shard_batch
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_staged_train_step
+
+    disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    la, lp = (x.requires_grad_(True) for x in shard_batch(mesh, a, p))
+    vals = ntxent_global(la, lp, 0.25, mesh.group)
+    vals[0].backward()
+    timeline["ntxent_global"] = time.time() - t_spawn
+    cfg = PretextConfig(batch_size=starts.shape[1], crop_frames=PRETEXT_CROP, dropout_rate=0.0, lr=1e-5)
+    state = init_pretext_state(cfg, 0, device=mesh.device)
+    timeline["init"] = time.time() - t_spawn
+    _, loss, pc, nc = make_staged_train_step(cfg, mesh)(state, shard_batch(mesh, bank), local, starts, None)
+    values = [loss.item(), pc.item(), nc.item()]  # the read waits for the step
+    timeline["step"] = time.time() - t_spawn
+    params, grads = _np_params(state.model)
+    return dict(ntx=([v.item() for v in vals], la.grad.cpu().numpy(), lp.grad.cpu().numpy()),
+                values=values, params=params, grads=grads, timeline=timeline, device=str(mesh.device))
+
+
+def _mesh_two_ranks(bank: np.ndarray, smi: str) -> None:
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device; gloo stages the card's tensors through the host): the d = 2,
+    k = 2 track-parallel step against the single-rank k = 4 step, and
+    ntxent_global against ntxent on the global batch."""
+    from zeronotesamba_torch.losses.ntxent import ntxent
+    from zeronotesamba_torch.parallel.launch import run_ranks
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_staged_train_step
+
+    world, k, batch = 2, 2, 16
+    local, global_idx, starts = _mesh_step_inputs(bank, world, k, batch)
+    g = np.random.default_rng(6)
+    a, p = (g.random((world * batch, PRETEXT_CROP), dtype=np.float32) for _ in range(2))
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_rank, world, "gloo", time.time(), bank[:world * MESH_SHARD], local, starts, a, p,
+                      device="cuda:0", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    check([r["device"] for r in ranks] == ["cuda:0"] * world, f"rank devices {[r['device'] for r in ranks]}")
+    check(all(np.array_equal(ranks[1]["params"][n], v) for n, v in ranks[0]["params"].items())
+          and ranks[0]["values"] == ranks[1]["values"], "the two ranks' parameters or losses differ")
+
+    cfg = PretextConfig(batch_size=batch, crop_frames=PRETEXT_CROP, dropout_rate=0.0, lr=1e-5)
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = init_pretext_state(cfg, 0, device="cuda")
+        _, loss, pc, nc = make_staged_train_step(cfg)(state, torch.as_tensor(bank[:world * MESH_SHARD], device="cuda"),
+                                                       global_idx, starts, None)
+        params, grads = _np_params(state.model)
+        ta, tp = (torch.tensor(x, device="cuda", requires_grad=True) for x in (a, p))
+        ref = ntxent(ta, tp, 0.25)
+        ref[0].backward()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = ranks[0]
+    single = [loss.item(), pc.item(), nc.item()]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(got["values"], single))
+    grad_rel = {n: float(np.abs(got["grads"][n] - gr).max() / np.abs(gr).max()) for n, gr in grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    eps = float(np.finfo(np.float32).eps)
+    param_excess = max(float((np.abs(got["params"][n] - v) - 2 * cfg.lr - 2 * eps * np.abs(v)).max())
+                       for n, v in params.items())
+    ntx_vals = got["ntx"][0]
+    ntx_rel = max(abs(x - y.item()) / abs(y.item()) for x, y in zip(ntx_vals, ref))
+    ntx_grad = max(float(np.abs(np.concatenate([r["ntx"][i] for r in ranks]) - t.grad.cpu().numpy()).max())
+                   for i, t in ((1, ta), (2, tp)))
+    check(loss_rel <= MESH_LOSS_RTOL, f"two-rank step loss/cosines {got['values']} vs single k = 4 {single}")
+    check(grad_rel[worst] <= PARITY_GRAD_REL, f"two-rank step gradient of {worst}: {grad_rel[worst]} of its largest")
+    check(param_excess <= 0.0, f"two-rank step params exceed 2 lr by {param_excess}")
+    check(ntx_rel <= MESH_LOSS_RTOL and ntx_grad <= MESH_NTX_GRAD_ATOL,
+          f"ntxent_global on two ranks vs ntxent: {ntx_rel} relative, gradients {ntx_grad}")
+    emit("mesh", part="two_ranks", backend="gloo", world=world, device="cuda:0 (shared)", tracks_per_rank=k,
+         batch=batch, crop=PRETEXT_CROP, loss=got["values"][0], loss_single_k4=single[0], loss_rel_err=loss_rel,
+         max_grad_err_of_tensor_max=grad_rel[worst], worst_grad=worst, max_param_excess_over_2lr=param_excess,
+         ntxent_global_rel_err=ntx_rel, ntxent_global_grad_err=ntx_grad, rank_timelines=[r["timeline"] for r in ranks],
+         seconds_with_spawn=ranks_s, card=smi)
+
+
+def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
+    """pretext --data-parallel --stem-root on phase 8's stems (one NCCL rank
+    a card), with the VQT launches of the bank build that its rank 0 counts
+    and prints, and infer --params with the checkpoint it wrote."""
+    import shutil
+
+    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+
+    stem_root = os.path.join(OUT_DIR, "pretext_stems")
+    run_dir = os.path.join(OUT_DIR, "mesh_cli")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt = os.path.join(run_dir, "shift_pret_cnn_16.pth")
+    wav = os.path.join(OUT_DIR, "pretext_click.wav")  # phase 8's
+    secs, out = {}, {}
+    for name, args in (("pretext", ["pretext", "--data-parallel", "--stem-root", stem_root, "--epochs", "2",
+                                    "--checkpoint", ckpt]),
+                       ("infer", ["infer", wav, "--params", ckpt])):
+        secs[name], stdout = _cli(args, timeout=600)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+        check(name != "pretext" or len(lines) == 1, f"pretext --data-parallel printed {len(lines)} JSON lines")
+        out[name] = json.loads(lines[-1])
+    p = out["pretext"]
+    check(p["ranks"] == torch.cuda.device_count() and p["epochs"] == 2 and math.isfinite(p["best_val_loss"]),
+          f"pretext --data-parallel {p}")
+    launches, n_items = p["bank_vqt_launches"], p["bank_items"]
+    check(n_items == len(bank) and launches == {k: 2 * n_items for k in vk.LAUNCHES},
+          f"pretext --data-parallel bank of {n_items} items (phase 8: {len(bank)}) launched {launches}, "
+          "expected 2 of each kernel an item")
+    for kname in vk.LAUNCHES:
+        stats[kname]["data_parallel_bank_launches_per_item"] = launches[kname] / n_items
+    check(os.listdir(run_dir) == [os.path.basename(ckpt)], f"checkpoints written: {os.listdir(run_dir)}")
+    check(out["infer"]["n_frames"] == 501, f"infer --params output {out['infer']}")
+    emit("mesh", part="cli", ranks=p["ranks"], bank_items=n_items, train_items=n_items - max(1, n_items // 10),
+         epochs=p["epochs"], best_val_loss=p["best_val_loss"], seconds=secs, bank_launches=launches,
+         infer_n_beats=len(out["infer"]["beat_times"]), card=smi)
+    shutil.rmtree(run_dir)  # 107 MB of twin weights, checked above
+
+
+def phase_mesh(stats: dict, bank: np.ndarray, smi: str) -> None:
+    t0 = time.perf_counter()
+    _mesh_one_rank(bank, smi)
+    _mesh_two_ranks(bank, smi)
+    _mesh_cli(stats, bank, smi)
+    emit("mesh", part="done", seconds=time.perf_counter() - t0, card=smi)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -1677,10 +1896,11 @@ def main() -> None:
     phase_decode(stats, pulse)
     phase_throughput()
     ds = phase_train(stats)
-    phase_pretext(stats)
+    bank = phase_pretext(stats)
     phase_evaluate(ds)
     phase_separator(stats, args.trace)
     phase_suite(stats)
+    phase_mesh(stats, bank, smi)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         s = stats.pop(name)

@@ -12,7 +12,8 @@ pulses card vs CPU 1e-3 (cuDNN may pick FFT or Winograd sums), one train
 step card vs CPU: loss 1e-4 relative, gradients 1e-2 of each tensor's
 largest, parameters 2 lr plus their float32 rounding; the staged pretext
 step at k = 2 card vs CPU at the same tolerances (its gradients with the
-CPU's max-pool and ReLU decisions replayed on the card); the batched DBN
+CPU's max-pool and ReLU decisions replayed on the card); the staged step
+on a one-rank NCCL mesh against the single-device step within 1e-7; the batched DBN
 Viterbi kernel equal to its plain version bit for bit, and the device
 decode's beats equal to the float64 DBN's on clean golden activations.
 """
@@ -161,6 +162,38 @@ def test_pretext_step_card_matches_cpu(cuda):
     for k in pc:
         torch.testing.assert_close(gs[k], gc[k], rtol=0, atol=1e-2 * gc[k].abs().max().item(), msg=k)
         torch.testing.assert_close(pg[k], pc[k], rtol=2 * torch.finfo(torch.float32).eps, atol=2 * cfg.lr)
+
+
+def test_one_rank_nccl_mesh_step_equals_single_device(cuda):
+    """The track-parallel staged step on a world of one NCCL rank (in this
+    process) against the single-device step, k = 2 at batch 4 x 128,
+    dropout on (rank 0 draws the single-device masks), cuDNN deterministic:
+    loss, cosines and parameters within 1e-7."""
+    from zeronotesamba_torch.parallel.launch import single_rank
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_staged_train_step
+    from zeronotesamba_torch.train.supervised import dropout_generator
+
+    rng = np.random.default_rng(6)
+    bank = torch.tensor((rng.standard_normal((3, 2, 96, 256)) * 4.0 - 6.0).astype(np.float32), device=cuda)
+    starts = np.stack([rng.choice(129, size=4, replace=False) for _ in range(2)])
+    cfg = PretextConfig(batch_size=4, crop_frames=128, lr=1e-5)
+    runs = []
+    deterministic, benchmark = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with single_rank("nccl", cuda) as mesh:
+            for m in (None, mesh):
+                state = init_pretext_state(cfg, 3, device=cuda)
+                _, loss, pc, nc = make_staged_train_step(cfg, m)(state, bank, np.array([0, 2]), starts,
+                                                                 dropout_generator(1, 0, cuda))
+                runs.append(([loss.item(), pc.item(), nc.item()],
+                             {k: v.detach().cpu() for k, v in state.model.named_parameters()}))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, benchmark
+    (v0, p0), (v1, p1) = runs
+    np.testing.assert_allclose(v1, v0, rtol=0, atol=1e-7)
+    for k in p0:
+        torch.testing.assert_close(p1[k], p0[k], rtol=0, atol=1e-7, msg=k)
 
 
 def test_pretext_banks_launch_each_kernel_once_a_log_vqt(cuda, tmp_path):

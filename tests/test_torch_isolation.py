@@ -103,6 +103,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
                  lambda: mine_stems(str(tmp_path), str(tmp_path / "out")),
                  lambda: gen_clmr_bank(str(tmp_path), 1),
                  lambda: cli.main(["pretext", "--bank", str(tmp_path / "bank.npz"), "--epochs", "1"]),
+                 lambda: cli.main(["pretext", "--bank", str(tmp_path / "bank.npz"), "--epochs", "1",
+                                   "--data-parallel"]),
                  lambda: load_separator(),
                  lambda: init_separator_state(SeparatorConfig(), 0),
                  lambda: train_separator(SeparatorConfig(steps=1), train_songs=1, val_songs=1, duration_s=4.2),

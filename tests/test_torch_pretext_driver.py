@@ -190,16 +190,6 @@ def test_profiling_timers(tmp_path):
     assert profiling.timing_summary(reset=True) and profiling.timing_summary() == {}
 
 
-def test_mesh_and_data_parallel_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_pretext(_bank(), _bank(1), PretextRunConfig(**SMALL), mesh=object(), device="cpu")
-    for make in (make_train_step, make_staged_train_step):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            make(PretextConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["pretext", "--bank", str(tmp_path / "none.npz"), "--data-parallel", "--device", "cpu"])
-
-
 def test_cli_pretext_on_cpu(tmp_path, capsys):
     """``pretext --bank`` at the CLI's 313-frame crop; the single-encoder
     task keeps it short."""

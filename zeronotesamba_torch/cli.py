@@ -107,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--checkpoint", default="models/shift_pret_cnn_16.pth",
                     help="best params path, .pth or .npz, in the reference key names")
     pt.add_argument("--data-parallel", action="store_true",
-                    help="not ported yet (ROADMAP 'Modules to port', item 10); raises")
+                    help="track-parallel over every visible card, one NCCL rank each (or the torchrun world; "
+                         "with --device cpu, one gloo rank)")
     pt.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                     help="conv compute dtype (params and loss stay float32)")
     pt.add_argument("--selection", default="val_loss", choices=["val_loss", "proxy_f1"],
@@ -256,37 +257,14 @@ def main(argv=None):
         _dump(args.out, {str(k): v for k, v in res.items()})
 
     elif args.cmd == "pretext":
-        import numpy as np
-
-        from zeronotesamba_torch.experiments.pretext_driver import (
-            PretextRunConfig, build_bank_from_stem_root, train_pretext,
-        )
-        from zeronotesamba_torch.train.pretext import MESH_NOT_PORTED
-
-        if args.data_parallel:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        if args.bank:
-            with np.load(args.bank) as z:
-                train_bank, val_bank = z["train_bank"], z["val_bank"]
-        elif args.stem_root:
-            bank = build_bank_from_stem_root(args.stem_root, n_samples=10**9, seed=args.seed, device=args.device)
-            n_val = max(1, len(bank) // 10)
-            val_bank, train_bank = bank[:n_val], bank[n_val:]
-        else:
+        if not (args.bank or args.stem_root):
             raise SystemExit("need --bank or --stem-root")
-        proxy_ds = None
-        if args.proxy_data:
-            from zeronotesamba_torch.data.datasets import BeatDataset
+        if args.data_parallel:
+            from zeronotesamba_torch.parallel.launch import launch
 
-            proxy_ds = BeatDataset.load(args.proxy_data)
-        cfg = PretextRunConfig(task=args.task, num_epochs=args.epochs, batch_size=args.batch_size,
-                               seed=args.seed, checkpoint_path=args.checkpoint,
-                               compute_dtype=args.dtype, selection=args.selection,
-                               proxy_dataset=proxy_ds, steps_per_call=args.steps_per_call,
-                               freq_s2d=(1,) if args.freq_s2d else ())
-        _, hist = train_pretext(train_bank, val_bank, cfg, device=args.device)
-        print(json.dumps({"checkpoint": args.checkpoint, "epochs": len(hist["val_loss"]),
-                          "best_val_loss": min(hist["val_loss"]), "restarts": hist["restarts"]}))
+            launch(_pretext, args.device, args)
+        else:
+            _pretext(None, args)
 
     elif args.cmd == "train-separator":
         from zeronotesamba_torch.train.separator import (
@@ -444,6 +422,57 @@ def main(argv=None):
                 results[f] = {"error": str(e)}
         _dump(args.out, results)
         print(f"tracked {len(results)} files -> {args.out}")
+
+
+def _pretext(mesh, args):
+    """The pretext subcommand on one rank (``mesh`` None: on ``--device``).
+    Rank 0 alone loads or builds the bank; the other ranks map its train
+    bank read-only and read their shard (parallel/mesh.host_array_from_rank0),
+    and need no validation bank. Rank 0 prints the JSON line; built from
+    ``--stem-root``, it counts the bank's items and the VQT kernel launches
+    of its build."""
+    import numpy as np
+
+    from zeronotesamba_torch.experiments.pretext_driver import (
+        PretextRunConfig, build_bank_from_stem_root, train_pretext,
+    )
+    from zeronotesamba_torch.ops.cuda import vqt_kernel
+
+    device = args.device if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    train_bank = val_bank = None
+    built = {}
+    if lead and args.bank:
+        with np.load(args.bank) as z:
+            train_bank, val_bank = z["train_bank"], z["val_bank"]
+    elif lead:
+        before = dict(vqt_kernel.LAUNCHES)
+        bank = build_bank_from_stem_root(args.stem_root, n_samples=10**9, seed=args.seed, device=device)
+        built = {"bank_items": len(bank),
+                 "bank_vqt_launches": {k: n - before[k] for k, n in vqt_kernel.LAUNCHES.items()}}
+        n_val = max(1, len(bank) // 10)
+        val_bank, train_bank = bank[:n_val], bank[n_val:]
+    if mesh is not None:
+        from zeronotesamba_torch.parallel.mesh import host_array_from_rank0
+
+        train_bank = host_array_from_rank0(train_bank, mesh)
+    proxy_ds = None
+    if args.proxy_data:
+        from zeronotesamba_torch.data.datasets import BeatDataset
+
+        proxy_ds = BeatDataset.load(args.proxy_data)
+    cfg = PretextRunConfig(task=args.task, num_epochs=args.epochs, batch_size=args.batch_size,
+                           seed=args.seed, checkpoint_path=args.checkpoint,
+                           compute_dtype=args.dtype, selection=args.selection,
+                           proxy_dataset=proxy_ds, steps_per_call=args.steps_per_call,
+                           freq_s2d=(1,) if args.freq_s2d else ())
+    _, hist = train_pretext(train_bank, val_bank, cfg, mesh=mesh, device=device)
+    if lead:
+        out = {"checkpoint": args.checkpoint, "epochs": len(hist["val_loss"]),
+               "best_val_loss": min(hist["val_loss"]), "restarts": hist["restarts"], **built}
+        if mesh is not None:
+            out["ranks"] = mesh.size
+        print(json.dumps(out), flush=True)
 
 
 def _sep_model(args):

@@ -3,7 +3,9 @@
 Port of zeronotesamba_tpu/decode/dbn_native.py with a build of its own: the
 port's copy of the source compiles with ``g++ -O3 -fPIC -shared -std=c++17``
 at first use into ``zeronotesamba_torch/_build/<hash>/``, keyed by a hash of
-the source and the flags, so later processes reuse it. Several processes may
+the source, the flags, the host's CPU fingerprint and the compiler's version
+(utils/hostcache.py), so later processes reuse it and a library built on
+another host is never loaded. Several processes may
 build at once (test workers): each compiles into its own temporary file and
 moves it into place atomically, so none loads a partial library. A missing
 compiler or a failed build raises; the numpy recursion runs only where the
@@ -23,6 +25,7 @@ from typing import Optional
 import numpy as np
 
 from zeronotesamba_torch.ops.cuda.build import BUILD_ROOT, CSRC
+from zeronotesamba_torch.utils import hostcache
 
 SOURCE = CSRC / "dbn_viterbi.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
@@ -31,10 +34,18 @@ LIB_NAME = "libdbn_viterbi_cpp.so"
 _LIB: Optional[ctypes.CDLL] = None
 
 
+def _cxx() -> str:
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or $CXX) found; the native DBN cannot be built")
+    return cxx
+
+
 def library_path() -> Path:
     if not SOURCE.is_file():
         raise FileNotFoundError(f"{SOURCE} not found; the native DBN cannot be built")
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(hostcache.build_tag(_cxx()).encode())
     h.update(SOURCE.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
@@ -44,9 +55,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++ or $CXX) found; the native DBN cannot be built")
+    cxx = _cxx()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True,

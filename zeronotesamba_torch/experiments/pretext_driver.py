@@ -12,6 +12,15 @@ driver's order from the same seeds, so both drivers train on the same crops
 in the same order. Dropout masks cannot follow JAX's streams: each update
 draws them from a device generator seeded from ``seed + 1 + 1000*attempt``
 and the global update index (train/supervised.dropout_generator).
+
+With a ``mesh`` (parallel/mesh.py) every rank runs ``train_pretext``
+track-parallel, as the JAX driver does under a mesh: the bank is padded
+modularly to a multiple of d and rank r holds rows [r*S, (r+1)*S) on its
+device; every rank draws the same host stream (one permutation per shard,
+in shard order), and each update hands rank r its k local tracks. Rank 0
+alone evaluates the validation batches and the proxy F1, and broadcasts
+the numbers that drive checkpoint selection, the plateau watchdog and the
+resume; it alone writes checkpoints. Every rank returns the same history.
 """
 
 from __future__ import annotations
@@ -24,9 +33,9 @@ import numpy as np
 import torch
 
 from zeronotesamba_torch.device import resolve_device
+from zeronotesamba_torch.parallel.mesh import Mesh, broadcast_scalars
 from zeronotesamba_torch.train.checkpoint import CheckpointManager, save_params
 from zeronotesamba_torch.train.pretext import (
-    MESH_NOT_PORTED,
     PretextConfig,
     crop_shifts,
     init_pretext_state,
@@ -170,25 +179,37 @@ def _params(model: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+def shard_bank(train_bank: np.ndarray, mesh: Mesh) -> torch.Tensor:
+    """This rank's (S, 2, 96, T) shard of the bank padded to a multiple of d
+    rows, on its device: rows [r*S, (r+1)*S) of the padded bank. The pad
+    repeats the bank's rows modularly, as the JAX driver's does (a bank
+    smaller than half the data axis needs more pad rows than it has). Only
+    the shard's rows are read, so a memory-mapped bank is read only there."""
+    n = len(train_bank)
+    s = -(-n // mesh.size)
+    rows = np.arange(mesh.rank * s, (mesh.rank + 1) * s) % n
+    return torch.as_tensor(np.asarray(np.take(train_bank, rows, axis=0), np.float32), device=mesh.device)
+
+
 def train_pretext(
     train_bank: np.ndarray,
     val_bank: np.ndarray,
     cfg: PretextRunConfig,
     *,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     device: str | torch.device = "cuda",
 ) -> "tuple":
-    """Train on ``device``; returns (best params as a state dict in the
-    reference key names, history dict)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    """Train on ``device`` (with a ``mesh``, on its device); returns (best
+    params as a state dict in the reference key names, history dict). Under
+    a mesh only rank 0 reads ``val_bank``; the other ranks may pass None."""
     if cfg.selection not in ("val_loss", "proxy_f1"):
         raise ValueError(f"unknown selection {cfg.selection!r} (val_loss|proxy_f1)")
     if cfg.selection == "proxy_f1" and cfg.proxy_dataset is None:
         raise ValueError("selection='proxy_f1' requires proxy_dataset")
     if cfg.selection == "proxy_f1" and cfg.task != "zerons":
         raise ValueError("proxy_f1 selection needs the twin 'zerons' pretext")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
+    lead = mesh is None or mesh.rank == 0  # evaluates, decides and writes
 
     pcfg = PretextConfig(
         task=cfg.task, batch_size=cfg.batch_size, crop_frames=cfg.crop_frames,
@@ -196,13 +217,17 @@ def train_pretext(
         freq_s2d=tuple(cfg.freq_s2d),
     )
     state = init_pretext_state(pcfg, cfg.seed, device=dev)
-    step = make_staged_train_step(pcfg)
+    step = make_staged_train_step(pcfg, mesh=mesh)
     eval_step = make_eval_step(pcfg)
     rng = np.random.default_rng(cfg.seed)
     # Both banks go to the device once; a training batch is (track, shifts)
-    # and one gather there (make_staged_train_step).
-    bank_dev = torch.as_tensor(train_bank, dtype=torch.float32, device=dev)
-    val_batches = [torch.as_tensor(vb, device=dev) for vb in fixed_val_shifts(val_bank, pcfg, cfg.seed)]
+    # and one gather there (make_staged_train_step). Under a mesh each rank
+    # holds its shard of the train bank, and rank 0 the validation batches.
+    if mesh is None:
+        bank_dev = torch.as_tensor(train_bank, dtype=torch.float32, device=dev)
+    else:
+        bank_dev = shard_bank(train_bank, mesh)
+    val_batches = [torch.as_tensor(vb, device=dev) for vb in fixed_val_shifts(val_bank, pcfg, cfg.seed)] if lead else []
     bank_frames = train_bank.shape[-1]
 
     best_val = np.inf
@@ -218,6 +243,9 @@ def train_pretext(
     if cfg.resume_dir:
         mgr = CheckpointManager(cfg.resume_dir)
         latest = mgr.latest_step()
+        if mesh is not None:
+            latest = int(broadcast_scalars([-1 if latest is None else latest], mesh)[0])
+            latest = None if latest < 0 else latest
         if latest is not None:
             state = mgr.restore(state, latest)
             start_epoch = latest + 1
@@ -227,14 +255,27 @@ def train_pretext(
 
     def epoch_updates() -> list:
         """Per-epoch track order as a list of updates: a track index (k = 1)
-        or a (k,) index array, the last padded by tracks drawn at random."""
-        order = rng.permutation(len(train_bank))
-        if k == 1:
-            return list(order)
-        pad = (-len(order)) % k
-        if pad:
-            order = np.concatenate([order, rng.choice(len(train_bank), size=pad)])
-        return list(order.reshape(-1, k))
+        or a (k,) index array, the last padded by tracks drawn at random.
+        Under a mesh, each shard's own permutation (drawn in shard order,
+        each padded to a multiple of k) laid out as (d*k,) LOCAL indices a
+        update, rank i's at [i*k, (i+1)*k)."""
+        if mesh is None:
+            order = rng.permutation(len(train_bank))
+            if k == 1:
+                return list(order)
+            pad = (-len(order)) % k
+            if pad:
+                order = np.concatenate([order, rng.choice(len(train_bank), size=pad)])
+            return list(order.reshape(-1, k))
+        perms = []
+        shard_size = len(bank_dev)
+        padk = (-shard_size) % k
+        for _ in range(mesh.size):
+            p_i = rng.permutation(shard_size)
+            if padk:
+                p_i = np.concatenate([p_i, rng.choice(shard_size, size=padk)])
+            perms.append(p_i.reshape(-1, k))
+        return list(np.stack(perms, axis=1).reshape(-1, mesh.size * k))
 
     def starts_for(i):
         if np.ndim(i) > 0:
@@ -268,10 +309,19 @@ def train_pretext(
             for vb in val_batches:
                 loss, pc, nc = eval_step(state, vb)
                 va_losses.append(float(loss)); va_pos.append(float(pc)); va_neg.append(float(nc))
-            tr, va = float(np.mean(tr_losses)), float(np.mean(va_losses))
+            proxy_due = cfg.proxy_dataset is not None and (
+                (epoch + 1) % cfg.proxy_every == 0 or epoch == cfg.num_epochs - 1)
+            pf1 = float("nan")
+            if proxy_due and lead:
+                pf1 = zero_shot_proxy_f1(cfg.proxy_dataset, state.model.state_dict(),
+                                         eval_method=cfg.proxy_eval_method, device=dev)
+            va, vpos, vneg = (float(np.mean(v)) for v in (va_losses, va_pos, va_neg)) if lead else (0.0,) * 3
+            if mesh is not None:
+                va, vpos, vneg, pf1 = broadcast_scalars([va, vpos, vneg, pf1], mesh)
+            tr = float(np.mean(tr_losses))
             hist["train_loss"].append(tr); hist["val_loss"].append(va)
             hist["train_pos"].append(float(np.mean(tr_pos))); hist["train_neg"].append(float(np.mean(tr_neg)))
-            hist["val_pos"].append(float(np.mean(va_pos))); hist["val_neg"].append(float(np.mean(va_neg)))
+            hist["val_pos"].append(vpos); hist["val_neg"].append(vneg)
             log.info("epoch %d: train=%.4f val=%.4f pos=%.3f neg=%.3f", epoch, tr, va,
                      hist["val_pos"][-1], hist["val_neg"][-1])
             if va < pinned_ln - cfg.plateau_margin:
@@ -279,27 +329,23 @@ def train_pretext(
             if va < best_val:
                 best_val = va
                 best_params = _params(state.model)
-                if cfg.checkpoint_path:
+                if cfg.checkpoint_path and lead:
                     path = cfg.checkpoint_path
                     save_params(path if cfg.selection == "val_loss" else _other_path(path, "_valsel"), state.model)
-            if cfg.proxy_dataset is not None and (
-                (epoch + 1) % cfg.proxy_every == 0 or epoch == cfg.num_epochs - 1
-            ):
-                pf1 = zero_shot_proxy_f1(cfg.proxy_dataset, state.model.state_dict(),
-                                         eval_method=cfg.proxy_eval_method, device=dev)
+            if proxy_due:
                 hist["proxy_epoch"].append(epoch)
                 hist["proxy_f1"].append(pf1)
                 log.info("epoch %d: proxy zero-shot F1=%.3f (best %.3f)", epoch, pf1, max(best_proxy, pf1))
                 if pf1 > best_proxy:
                     best_proxy = pf1
                     best_proxy_params = _params(state.model)
-                    if cfg.checkpoint_path:
+                    if cfg.checkpoint_path and lead:
                         path = cfg.checkpoint_path
                         save_params(path if cfg.selection == "proxy_f1" else _other_path(path, "_proxysel"),
                                     state.model)
-            if mgr is not None:
+            if mgr is not None and lead:
                 mgr.save(epoch, state, metrics={"val_loss": va})
-            if cfg.figures_path and (epoch + 1) % cfg.figures_every == 0:
+            if cfg.figures_path and lead and (epoch + 1) % cfg.figures_every == 0:
                 from zeronotesamba_torch.utils.plotting import plot_history
 
                 plot_history(hist, cfg.figures_path)

@@ -3,9 +3,10 @@
 Every source under ``zeronotesamba_torch/csrc/`` compiles with its own
 ``nvcc`` process, all started together, into a plain-C shared library for
 ``sm_90a``. The libraries land in ``zeronotesamba_torch/_build/<hash>/``,
-keyed by a hash of the sources and the flags, so a fresh checkout builds
-them at first CUDA use and later processes reuse them. Nothing builds at
-import time; a failed build raises.
+keyed by a hash of the sources, the flags, the host's CPU fingerprint and
+nvcc's version (utils/hostcache.py), so a fresh checkout builds them at
+first CUDA use, later processes reuse them, and a build made on another
+host is never loaded. Nothing builds at import time; a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from zeronotesamba_torch.utils import hostcache
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -45,6 +48,7 @@ def build_dir() -> Path:
     if missing:
         raise FileNotFoundError(f"CUDA sources {missing} not found under {CSRC}; the kernels cannot be built")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(hostcache.build_tag(_nvcc()).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / f"{name}.cu").read_bytes())

@@ -10,9 +10,15 @@ the same audio. The embedding NT-Xent sees is each DSCNN's sigmoid pulse,
 lives on the device and each step receives only ``(track_idx, starts)``;
 the crops come from one index gather on the device.
 
-The JAX engine's data-parallel mesh (``ntxent_global``, track-parallel
-banks) waits for the torch.distributed slice, ROADMAP "Modules to port"
-item 10: passing a ``mesh`` raises.
+With a ``mesh`` (parallel/mesh.py) both train steps are data parallel over
+its ranks, one process each, as the JAX engine's are over the mesh's
+``data`` axis. The host-batch step splits one track's B shifts over the
+ranks and takes ``ntxent_global`` (global negatives). The staged step is
+track-parallel: each rank holds its own shard of the bank and runs the
+local per-track NT-Xent on its k of the update's d*k tracks. Either way
+each rank differentiates its share of the global loss, and one flattened
+all-reduce sums the parameter gradients before Adam, so every rank holds
+the same parameters after every step.
 
 Dropout: a train step draws its masks from the ``torch.Generator`` it is
 given (train/supervised.dropout_generator builds one per step), and a step
@@ -28,15 +34,11 @@ import numpy as np
 import torch
 
 from zeronotesamba_torch.device import disable_tf32, resolve_device
-from zeronotesamba_torch.losses.ntxent import ntxent
+from zeronotesamba_torch.losses.ntxent import ntxent, ntxent_global
 from zeronotesamba_torch.models.encoder import DSCNN, TwinPretext
 from zeronotesamba_torch.models.weights import load_weights
+from zeronotesamba_torch.parallel.mesh import Mesh, all_reduce_grads, pmean, rank_generator, shard_batch
 from zeronotesamba_torch.train.state import TrainState, pretext_optimizer
-
-MESH_NOT_PORTED = (
-    "a data-parallel mesh (ntxent_global, track-parallel banks) is not ported yet: "
-    "it waits for torch.distributed, ROADMAP 'Modules to port', item 10"
-)
 
 
 @dataclasses.dataclass
@@ -146,25 +148,41 @@ def _batch_loss(model, batch: torch.Tensor, cfg: PretextConfig, generator: Optio
     return losses.mean(), pcs.mean(), ncs.mean()
 
 
-def _update(state: TrainState, loss_fn):
+def _update(state: TrainState, loss_fn, mesh: Optional[Mesh] = None):
     state.optimizer.zero_grad(set_to_none=True)
     loss, pc, nc = loss_fn(state.model)
     loss.backward()
+    if mesh is not None:
+        all_reduce_grads(list(state.model.parameters()), mesh)
     state.optimizer.step()
     state.step += 1
     return state, loss.detach(), pc.detach(), nc.detach()
 
 
-def make_train_step(cfg: PretextConfig, mesh=None):
+def make_train_step(cfg: PretextConfig, mesh: Optional[Mesh] = None):
     """The host-batch train step: ``step(state, batch, generator)`` on a
     (B, 2, 96, crop) batch -> (state, loss, pos cosine, neg cosine), each a
     0-d tensor on the device. The parameters' ``grad`` holds this step's
-    gradients afterwards."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    gradients afterwards.
 
-    def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator]):
-        return _update(state, lambda m: _batch_loss(m, batch, cfg, generator))
+    With a ``mesh`` every rank passes the same global batch and takes its
+    B/d rows (B must divide by d); the loss is ``ntxent_global`` over the
+    global batch, so the step equals the single-device step on that batch
+    (at dropout 0: each rank draws its own masks, ``rank_generator``)."""
+    if mesh is None:
+        def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator]):
+            return _update(state, lambda m: _batch_loss(m, batch, cfg, generator))
+
+        return step
+
+    def sharded_loss(model, batch, generator):
+        a_emb, p_emb = _forward(model, batch[:, 0:1], batch[:, 1:2], cfg.task, generator)
+        return ntxent_global(a_emb, p_emb, cfg.temperature, mesh.group)
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator]):
+        local = shard_batch(mesh, batch)
+        gen = rank_generator(generator, mesh.rank)
+        return _update(state, lambda m: sharded_loss(m, local, gen), mesh)
 
     return step
 
@@ -192,7 +210,8 @@ def staged_crops(bank: torch.Tensor, track_idx: torch.Tensor, starts: torch.Tens
     return bank[ti, torch.arange(c, device=dev).view(c, 1, 1), torch.arange(f, device=dev).view(f, 1), frames]
 
 
-def make_staged_train_step(cfg: PretextConfig, mesh=None, steps_per_call: int = 1, scan_unroll=False):
+def make_staged_train_step(cfg: PretextConfig, mesh: Optional[Mesh] = None, steps_per_call: int = 1,
+                           scan_unroll=False):
     """Train step over a DEVICE-RESIDENT bank: ``step(state, bank, track_idx,
     starts, generator)`` -> (state, loss, pos cosine, neg cosine).
 
@@ -211,18 +230,34 @@ def make_staged_train_step(cfg: PretextConfig, mesh=None, steps_per_call: int = 
     driver then pads each epoch's updates to a multiple of S by drawing extra
     tracks (experiments/pretext_driver.py:303-306), so at S > 1 its shuffle
     stream differs from the port's, which runs the S = 1 schedule.
+
+    With a ``mesh`` the step is track-parallel, as the JAX mesh step: each
+    rank passes its own (N/d, 2, 96, T) shard of the bank, and every rank
+    the same (d*k,) ``track_idx`` of LOCAL indices and (d*k, B) ``starts``;
+    rank i takes rows [i*k, (i+1)*k), runs the k-track loss on its shard,
+    and the loss, the cosines and the gradients are averaged over the
+    ranks. The step over d*k tracks equals the single-device k' = d*k step
+    over the same tracks (at dropout 0: each rank draws its own masks,
+    ``rank_generator``).
     """
     del steps_per_call, scan_unroll
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
 
     def loss_fn(model, bank, track_idx, starts, generator):
         ti = torch.as_tensor(track_idx, dtype=torch.int64, device=bank.device).reshape(-1)
         st = torch.as_tensor(starts, dtype=torch.int64, device=bank.device).reshape(ti.shape[0], -1)
+        if mesh is not None:
+            if ti.shape[0] % mesh.size:
+                raise ValueError(f"{ti.shape[0]} track indices do not split over the {mesh.size} ranks")
+            k = ti.shape[0] // mesh.size
+            ti, st = ti[mesh.rank * k: (mesh.rank + 1) * k], st[mesh.rank * k: (mesh.rank + 1) * k]
         crops = staged_crops(bank, ti, st, cfg.crop_frames)
-        return _batch_loss(model, crops.flatten(0, 1), cfg, generator, k=ti.shape[0])
+        loss, pc, nc = _batch_loss(model, crops.flatten(0, 1), cfg, generator, k=ti.shape[0])
+        if mesh is None:
+            return loss, pc, nc
+        return tuple(pmean(torch.stack([loss, pc.detach(), nc.detach()]), mesh.group))
 
     def step(state: TrainState, bank: torch.Tensor, track_idx, starts, generator: Optional[torch.Generator]):
-        return _update(state, lambda m: loss_fn(m, bank, track_idx, starts, generator))
+        gen = generator if mesh is None else rank_generator(generator, mesh.rank)
+        return _update(state, lambda m: loss_fn(m, bank, track_idx, starts, gen), mesh)
 
     return step
