@@ -16,10 +16,15 @@ Phases, each printing one JSON line:
                  the CPU with the same seeded weights; launch counters; the DBN
                  backend (native C++) and its numpy twin; the librosa decoder;
                  Ellis DP on the raw clicks; the CLI.
-5. decode     -- the batched DBN Viterbi kernel on its path: one padded batch of
-                 20 ragged songs through decode_beats_batch_device, launches
-                 counted, the kernel against its plain version exactly, beats
-                 against the float64 DBN, native against numpy, the online DBN.
+5. decode     -- the batched DBN Viterbi kernel on its path at three shapes,
+                 each decoded once through a device entry point with its one
+                 launch counted: 20 ragged songs padded to 3,750 frames and
+                 1,000 ragged 30 s songs (decode_beats_batch_device), and the
+                 main path's pulse alone (decode_beats_device); at each, the
+                 kernel against its plain version exactly, its time at 64 to
+                 512 threads a block, the gated songs' beats against the
+                 float64 DBN, and the host backtrack's share; native against
+                 numpy and the online DBN on the 20-song batch.
 6. throughput -- log-VQT + FusedDownstream on batch 32 x 10 s, float32 and bf16.
 7. train      -- the supervised training path, one JSON line per part: the ETL
                  (build_synthetic, 16 songs x 12 s, on the card, with its kernel
@@ -38,7 +43,8 @@ Phases, each printing one JSON line:
 9. evaluate   -- the evaluation path: one BockTCN train step card vs CPU, its step
                  time at batch 8 x 768, 20 steps that must lower the loss, and
                  the beat --status bock / cross / few-shot / measures /
-                 old-school / track-dir / resave CLI as subprocesses.
+                 old-school / track-dir / resave CLI (track-dir --decoder dbn
+                 as a subprocess, the rest through cli.main in this process).
 10. separator -- the learned separator, one JSON line per part: one MaskNet
                  train_step card vs CPU, step times at batch 8 x 256 frames, the
                  shipped weights' SI-SDR on synth_bank(8, 12 s, 999) against the
@@ -144,6 +150,9 @@ KERNEL_SOURCES = {
 # float32 rounding may pick another path, so their differences are reported.
 DECODE_GATED = ("clean_", "jitter_", "weak_", "ramp_")
 ONLINE_F1_MIN = 0.9  # online vs offline DBN on the clean activations (tests/test_dbn_online.py)
+# The decode phase's evaluation set: GTZAN's 1,000 30 s excerpts as one batch.
+DECODE_CORPUS_SONGS, DECODE_CORPUS_FRAMES, DECODE_CORPUS_SEED = 1000, 1876, 0
+VITERBI_THREADS = (64, 128, 256, 512)  # the Viterbi kernel's block sizes timed at each decode shape
 SEP_LR = 1e-3  # the separator step parity's Adam lr
 # The shipped separator's mean SI-SDR (dB, drums and rest) on
 # synth_bank(8, 12.0, 999), and HPSS's, from the JAX package on a CPU: the
@@ -786,7 +795,7 @@ def _experiment(ds) -> None:
 
 
 def _train_cli(ds) -> None:
-    """build-data and beat as subprocesses on the card."""
+    """build-data as a subprocess on the card, then beat in this process."""
     import shutil
 
     from zeronotesamba_torch.data.datasets import BeatDataset
@@ -798,13 +807,7 @@ def _train_cli(ds) -> None:
         "beat": ["beat", "--data", data_dir, "--folds", "2", "--max-epochs", "2", "--out", out_json,
                  "--device", "cuda"],
     }
-    secs = {}
-    for name, args in cmds.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "zeronotesamba_torch", *args], cwd=ROOT, capture_output=True,
-                              text=True, timeout=300)
-        secs[name] = time.perf_counter() - t0
-        check(proc.returncode == 0, f"CLI {name} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    secs = {name: _cli(args, in_process=name == "beat")[0] for name, args in cmds.items()}
     cache = BeatDataset.load(data_dir)
     check(cache.names == ds.names[:4], "build-data songs differ from build_synthetic's")
     vqt_err = max(float(np.abs(a.vqt - b.vqt).max()) for a, b in zip(cache, ds))
@@ -814,7 +817,8 @@ def _train_cli(ds) -> None:
         res = json.load(fh)
     names = ("F1", "CMLc", "CMLt", "AMLc", "AMLt", "InfoGain")
     check(all(math.isfinite(res[n]) and math.isfinite(res[n + "_std"]) for n in names), f"beat results {res}")
-    emit("train", part="cli", seconds=secs, n_songs=len(cache), max_abs_err_vqt_vs_in_process=vqt_err, results=res)
+    emit("train", part="cli", seconds=secs, in_process=["beat"], n_songs=len(cache),
+         max_abs_err_vqt_vs_in_process=vqt_err, results=res)
 
 
 def phase_train(stats: dict):
@@ -1054,7 +1058,7 @@ def _pretext_run(bank: np.ndarray) -> None:
 
 def _pretext_cli(bank: np.ndarray) -> None:
     """pretext --bank as a subprocess on the card, then infer --params with
-    the checkpoint it wrote."""
+    the checkpoint it wrote, in this process."""
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
 
@@ -1069,15 +1073,12 @@ def _pretext_cli(bank: np.ndarray) -> None:
     }
     secs, out = {}, {}
     for name, args in cmds.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "zeronotesamba_torch", *args], cwd=ROOT, capture_output=True,
-                              text=True, timeout=300)
-        secs[name] = time.perf_counter() - t0
-        check(proc.returncode == 0, f"CLI {name} failed ({proc.returncode}): {proc.stderr[-2000:]}")
-        out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        secs[name], stdout = _cli(args, in_process=name == "infer")
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
     check(out["pretext"]["epochs"] == 1 and math.isfinite(out["pretext"]["best_val_loss"]), f"pretext CLI {out}")
     check(out["infer"]["n_frames"] == 501, f"infer --params output {out['infer']}")
-    emit("pretext", part="cli", seconds=secs, pretext=out["pretext"], infer_n_beats=len(out["infer"]["beat_times"]))
+    emit("pretext", part="cli", seconds=secs, in_process=["infer"], pretext=out["pretext"],
+         infer_n_beats=len(out["infer"]["beat_times"]))
     os.remove(ckpt)  # 107 MB of twin weights, checked above
 
 
@@ -1107,63 +1108,141 @@ def _decode_batch(pulse: np.ndarray):
     return list(songs), acts, [len(a) for a in songs.values()], gold
 
 
-def phase_decode(stats: dict, pulse: np.ndarray) -> None:
-    """The batched DBN Viterbi on its path: decode_beats_batch_device on the
-    card over one padded batch of ragged songs, with its launches counted;
-    the kernel against its plain version on the card, exactly; each song's
-    beats against the float64 native and numpy decodes; the native against
-    the numpy DBN and the golden beats; the online DBN against the offline."""
+def _decode_corpus(pulse: np.ndarray, gold):
+    """A GTZAN-sized evaluation set as one batch: DECODE_CORPUS_SONGS songs
+    of 29 to 30 s (1,813 to 1,876 frames, seeded), each a seeded crop of a
+    golden activation or the main path's pulse, in turn, tiled to length;
+    zero-padded to 1,876."""
+    sources = {k[len("act_"):]: gold[k].astype(np.float64) for k in sorted(gold.files) if k.startswith("act_")}
+    sources["main_path_pulse"] = np.asarray(pulse, np.float64)
+    keys, rng = list(sources), np.random.default_rng(DECODE_CORPUS_SEED)
+    names, songs = [], []
+    for i in range(DECODE_CORPUS_SONGS):
+        src = sources[keys[i % len(keys)]]
+        n = DECODE_CORPUS_FRAMES - int(rng.integers(0, 64))
+        off = int(rng.integers(0, len(src)))
+        names.append(keys[i % len(keys)])
+        songs.append(np.tile(src, -(-(off + n) // len(src)))[off:off + n])
+    acts = np.stack([np.pad(a, (0, DECODE_CORPUS_FRAMES - len(a))) for a in songs])
+    return names, acts, [len(a) for a in songs]
+
+
+def _viterbi_timed(stats: dict, shape: str, acts: np.ndarray, lengths: list) -> dict:
+    """The Viterbi kernel on one padded batch: against its plain version on
+    the card (all three outputs equal), its device time at each block size
+    (the default's is ``kernel_ms``), the plain version's time (once) and
+    the card's bound. Launches here are not counted against the path."""
     from zeronotesamba_torch.decode import dbn_device
-    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, decode_beats
-    from zeronotesamba_torch.decode.dbn_online import decode_beats_online
-    from zeronotesamba_torch.metrics.beat import f_measure
+    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig
     from zeronotesamba_torch.ops.cuda import dbn_kernel
 
-    names, acts, lengths, gold = _decode_batch(pulse)
     cfg = DBNBeatDecoderConfig()
-    for key in dbn_kernel.LAUNCHES:
-        dbn_kernel.LAUNCHES[key] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    device_beats = dbn_device.decode_beats_batch_device(acts, lengths, cfg, device="cuda")
-    device_s = time.perf_counter() - t0
-    launches = dict(dbn_kernel.LAUNCHES)
-    check(launches == {"viterbi": 1}, f"decode launches {launches}, expected one viterbi launch a batch")
-    stats["viterbi"]["launches"] = launches["viterbi"]
-
-    # The kernel against its plain version, on the card, on the same inputs.
     masked = acts.copy()
     for b, nf in enumerate(lengths):
         masked[b, nf:] = 0.0
     la, lna = (torch.tensor(x.astype(np.float32), device="cuda") for x in dbn_device._observations(masked, cfg))
     space = dbn_device._space(cfg, torch.device("cuda"))
     got = dbn_kernel.viterbi_forward(la, lna, space)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = dbn_kernel.viterbi_forward_plain(la, lna, space)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     for what, g, r in zip(("v_final", "fc", "best"), got, ref):
         check(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r),
-              f"viterbi kernel {what} differs from its plain version")
+              f"viterbi kernel {what} differs from its plain version at {shape}")
     err = float((got[0] - ref[0]).abs().max())
+    del got, ref
+    # Each song-frame: n_int^2 candidate adds and as many compares, n_states
+    # observation adds and as many argmax compares.
+    batch, t_pad = acts.shape
+    n_int, n_states = space.n_int, space.n_states
+    threads_ms = {t: device_ms(lambda t=t: dbn_kernel._viterbi_forward_cuda(la, lna, space, threads=t), n=5, reps=3)
+                  for t in VITERBI_THREADS}
+    ms = device_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5, reps=3)
+    nbytes = 4.0 * 2 * batch * t_pad + 4.0 * n_int * n_int + 8.0 * n_int + n_states \
+        + 2.0 * batch * t_pad * n_int + 4.0 * batch * t_pad + 4.0 * batch * n_states
+    b_ms, b_by = bound(nbytes, 2.0 * (n_int * n_int + n_states) * batch * t_pad)
+    row = dict(shape=shape, batch=batch, t_pad=t_pad, frames_per_round=space.frames_per_round, kernel_ms=ms,
+               us_per_frame=ms * 1e3 / t_pad, threads_ms=threads_ms, plain_ms=plain_s * 1e3, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err_v_final=err)
+    stats["viterbi"].setdefault("shapes", {})[shape] = {k: row[k] for k in (
+        "kernel_ms", "us_per_frame", "plain_ms", "bound_ms", "bound_by", "frames_per_round", "threads_ms")}
+    if shape == "20x3750":  # the kernel's row in the summary, as in every PR before
+        stats["viterbi"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            frames_per_round=space.frames_per_round, us_per_frame=ms * 1e3 / t_pad,
+            event_ms=time_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5, warmup=1))
+    return row
 
-    # Each song's beats against the float64 decodes, native and numpy; the
-    # native DBN against the numpy one and the golden beats.
+
+def _device_decode(fn, n_songs: int) -> tuple:
+    """One device decode with the Viterbi launches counted: (result, its
+    host seconds a song, split into forward and backtrack)."""
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+
+    for key in dbn_kernel.LAUNCHES:
+        dbn_kernel.LAUNCHES[key] = 0
+    stage = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(stage)
+    secs = time.perf_counter() - t0
+    launches = dict(dbn_kernel.LAUNCHES)
+    check(launches == {"viterbi": 1}, f"decode launches {launches}, expected one viterbi launch a batch")
+    return out, dict(device_decode=secs / n_songs, forward=stage["forward_s"] / n_songs,
+                     backtrack=stage["backtrack_s"] / n_songs)
+
+
+def _beats_vs_float64(name: str, beats: np.ndarray, act: np.ndarray) -> tuple:
+    """(device beats equal the float64 native DBN's, beats in one and not the
+    other, the native decode's seconds); gated on DECODE_GATED."""
+    from zeronotesamba_torch.decode.dbn import decode_beats
+
+    t0 = time.perf_counter()
+    native = decode_beats(act)
+    secs = time.perf_counter() - t0
+    same = len(beats) == len(native) and np.array_equal(beats, native)
+    diff = int(np.sum(~np.isin(np.round(beats * FPS), np.round(native * FPS)))
+               + np.sum(~np.isin(np.round(native * FPS), np.round(beats * FPS))))
+    if name.startswith(DECODE_GATED):
+        check(same, f"{name}: device beats differ from the float64 DBN's ({diff} not shared)")
+    return same, diff, secs, native
+
+
+def phase_decode(stats: dict, pulse: np.ndarray) -> None:
+    """The batched DBN Viterbi on its path at three shapes, each decoded once
+    through the device entry points with its one launch counted, the kernel
+    held against its plain version on the card exactly, and the gated songs'
+    beats against the float64 DBN: 20 ragged songs padded to 3,750 frames
+    (decode_beats_batch_device; with native against numpy and the golden
+    beats, and the online DBN), the main path's pulse alone
+    (decode_beats_device), and a 1,000-song evaluation set of 30 s songs
+    (decode_beats_batch_device)."""
+    from zeronotesamba_torch.decode import dbn_device
+    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, decode_beats
+    from zeronotesamba_torch.decode.dbn_online import decode_beats_online
+    from zeronotesamba_torch.metrics.beat import f_measure
+
+    cfg = DBNBeatDecoderConfig()
+    launches = 0
+
+    # 20 x 3,750: the golden rows, the main path's pulse, it tiled, an empty song.
+    names, acts, lengths, gold = _decode_batch(pulse)
+    n_songs = sum(1 for n in lengths if n > 0)
+    device_beats, host = _device_decode(
+        lambda st: dbn_device.decode_beats_batch_device(acts, lengths, cfg, device="cuda", stage_s=st), n_songs)
+    launches += 1
+    row = _viterbi_timed(stats, "20x3750", acts, lengths)
     per_song, t_native, t_numpy = {}, 0.0, 0.0
     for name, act, nf, beats in zip(names, acts, lengths, device_beats):
         act = act[:nf]
-        t0 = time.perf_counter()
-        native = decode_beats(act, cfg)
+        same, diff, secs, native = _beats_vs_float64(name, beats, act)
         t1 = time.perf_counter()
         plain = decode_beats(act, cfg, use_native=False)
-        t_native, t_numpy = t_native + t1 - t0, t_numpy + time.perf_counter() - t1
+        t_native, t_numpy = t_native + secs, t_numpy + time.perf_counter() - t1
         check(np.array_equal(native, plain), f"{name}: native and numpy DBN beats differ")
-        same = len(beats) == len(native) and np.array_equal(beats, native)
-        diff = int(np.sum(~np.isin(np.round(beats * FPS), np.round(native * FPS)))
-                   + np.sum(~np.isin(np.round(native * FPS), np.round(beats * FPS))))
         per_song[name] = dict(frames=len(act), beats=len(native), device_equal=same, beats_not_shared=diff)
-        if name.startswith(DECODE_GATED):
-            check(same, f"{name}: device beats differ from the float64 DBN's ({diff} not shared)")
         if f"act_{name}" in gold.files:
             for correct, tag in ((True, "c"), (False, "u")):
                 c = dataclasses.replace(cfg, correct=correct)
@@ -1177,23 +1256,36 @@ def phase_decode(stats: dict, pulse: np.ndarray) -> None:
             on, off = decode_beats_online(act), decode_beats(act, cfg)
             online[name] = float(f_measure(off[off > 3], on[on > 3]))  # after the 3 s burn-in
             check(online[name] >= ONLINE_F1_MIN, f"online DBN F1 on {name} {online[name]} < {ONLINE_F1_MIN}")
+    emit("decode", **row, lengths=lengths, launches={"viterbi": 1}, serial_frames=row["t_pad"],
+         host_s_per_song=dict(host, numpy=t_numpy / n_songs, native=t_native / n_songs), songs=per_song,
+         online_f1=online)
 
-    # Times and the bound. Each song-frame: n_int^2 candidate adds and as many
-    # compares, n_states observation adds and as many argmax compares.
-    batch, t_pad = acts.shape
-    n_int, n_states = space.n_int, space.n_states
-    ms = device_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5, reps=3)
-    nbytes = 4.0 * 2 * batch * t_pad + 4.0 * n_int * n_int + 8.0 * n_int + n_states \
-        + 2.0 * batch * t_pad * n_int + 4.0 * batch * t_pad + 4.0 * batch * n_states
-    b_ms, b_by = bound(nbytes, 2.0 * (n_int * n_int + n_states) * batch * t_pad)
-    stats["viterbi"].update(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=None, event_ms=time_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5,
-                                                              warmup=1))
-    n_songs = sum(1 for n in lengths if n > 0)
-    emit("decode", batch=batch, t_pad=t_pad, lengths=lengths, launches=launches, kernel_ms=ms, plain_ms=plain_s * 1e3,
-         bound_ms=b_ms, bound_by=b_by, serial_frames=t_pad, max_abs_err_v_final=err,
-         host_s_per_song=dict(numpy=t_numpy / n_songs, native=t_native / n_songs, device_batch=device_s / n_songs),
-         songs=per_song, online_f1=online)
+    # 1 x 1,876: the main path's pulse, one song through decode_beats_device.
+    act = np.asarray(pulse, np.float64)
+    beats, host = _device_decode(lambda st: dbn_device.decode_beats_device(act, cfg, device="cuda", stage_s=st), 1)
+    launches += 1
+    row = _viterbi_timed(stats, f"1x{act.size}", act[None], [act.size])
+    same, diff, secs, native = _beats_vs_float64("main_path_pulse", beats, act)
+    emit("decode", **row, launches={"viterbi": 1}, serial_frames=row["t_pad"],
+         host_s_per_song=dict(host, native=secs), songs={"main_path_pulse": dict(
+             frames=act.size, beats=len(native), device_equal=same, beats_not_shared=diff)})
+
+    # 1,000 x 1,876: an evaluation set of ragged 30 s songs.
+    names, acts, lengths = _decode_corpus(pulse, gold)
+    device_beats, host = _device_decode(
+        lambda st: dbn_device.decode_beats_batch_device(acts, lengths, cfg, device="cuda", stage_s=st), len(names))
+    launches += 1
+    row = _viterbi_timed(stats, f"{len(names)}x{acts.shape[1]}", acts, lengths)
+    gated, equal, not_shared, t_native = 0, 0, 0, 0.0
+    for name, a, nf, beats in zip(names, acts, lengths, device_beats):
+        if name.startswith(DECODE_GATED):  # checked in _beats_vs_float64
+            same, diff, secs, _ = _beats_vs_float64(name, beats, a[:nf])
+            gated, equal, not_shared, t_native = gated + 1, equal + same, not_shared + diff, t_native + secs
+    emit("decode", **row, lengths=dict(min=min(lengths), max=max(lengths), sum=sum(lengths)),
+         launches={"viterbi": 1}, serial_frames=row["t_pad"],
+         host_s_per_song=dict(host, native=t_native / gated),
+         gated_songs=dict(songs=gated, device_equal=equal, beats_not_shared=not_shared))
+    stats["viterbi"]["launches"] = launches
 
 
 def _bock_parity(ds) -> None:
@@ -1257,9 +1349,23 @@ def _bock_steps() -> None:
          ms_per_step=statistics.median(times), step_ms=times, fit_losses=[losses[0], losses[-1]])
 
 
-def _cli(args: list, timeout: int = 300) -> tuple:
-    """One CLI subprocess on the card: (seconds, stdout)."""
+def _cli(args: list, timeout: int = 300, in_process: bool = False) -> tuple:
+    """One CLI call on the card: (seconds, stdout). A subprocess, its start
+    included, or with ``in_process`` zeronotesamba_torch.cli.main(args) in
+    this process with its standard output captured; each phase keeps at
+    least one subprocess, so process start stays measured."""
     t0 = time.perf_counter()
+    if in_process:
+        import contextlib
+        import io
+
+        from zeronotesamba_torch.cli import main as cli_main
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, buf.getvalue()
     proc = subprocess.run([sys.executable, "-m", "zeronotesamba_torch", *args], cwd=ROOT, capture_output=True,
                           text=True, timeout=timeout)
     secs = time.perf_counter() - t0
@@ -1268,8 +1374,10 @@ def _cli(args: list, timeout: int = 300) -> tuple:
 
 
 def _evaluate_cli(ds) -> None:
-    """The evaluation entry points as subprocesses on the card, on the train
-    phase's songs, the pretext phase's bank and three click-track wavs."""
+    """The evaluation entry points on the card, on the train phase's songs,
+    the pretext phase's bank and three click-track wavs: track-dir --decoder
+    dbn as a subprocess, the others through cli.main in this process (each
+    subprocess spends most of its time starting)."""
     import shutil
 
     from zeronotesamba_torch.data import audio_io
@@ -1315,7 +1423,7 @@ def _evaluate_cli(ds) -> None:
     for name, args in runs.items():
         if args[0] not in ("old-school", "resave"):  # host-only subcommands take no device
             args = args + ["--device", "cuda"]
-        secs[name], stdout = _cli(args)
+        secs[name], stdout = _cli(args, in_process=name != "track_dir_dbn")
         if name.startswith("measures_") and name != "measures_std":
             results[name] = {k: v["q0.5"] for k, v in json.loads(stdout).items()}
         elif name == "measures_std":
@@ -1344,7 +1452,7 @@ def _evaluate_cli(ds) -> None:
     for r in records:
         sig, sr = audio_io.read_wav(os.path.join(root, "wavs44k", r.name))
         check(sr == 44100 and sig.shape[0] == 12 * 44100, f"resave {r.name}: {sr} Hz, {sig.shape[0]} samples")
-    emit("evaluate", part="cli", seconds=secs, results=results)
+    emit("evaluate", part="cli", seconds=secs, subprocess=["track_dir_dbn"], results=results)
     shutil.rmtree(root)
 
 
@@ -1485,8 +1593,8 @@ def _separator_serving(stats: dict, trace: bool) -> None:
     """The learned serving path: track_signal(separation="learned") with the
     shipped separator on the main path's 30 s click track, on the card (with
     the kernel launches of one call counted) and on the CPU; its stages; the
-    infer and track-dir --separation learned CLI against the same tracker
-    in-process."""
+    infer (in this process) and track-dir --separation learned (a
+    subprocess) CLI against the same tracker."""
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
     from zeronotesamba_torch.infer import BeatTracker
@@ -1525,7 +1633,7 @@ def _separator_serving(stats: dict, trace: bool) -> None:
     os.makedirs(wav_dir, exist_ok=True)
     wav, out_json = os.path.join(wav_dir, "click_12s.wav"), os.path.join(OUT_DIR, "track_dir_learned.json")
     audio_io.write_wav(wav, click_track(12.0, 120.0, seed=1)[0], SR)
-    cli_s, stdout = _cli(["infer", wav, "--separation", "learned", "--device", "cuda"])
+    cli_s, stdout = _cli(["infer", wav, "--separation", "learned", "--device", "cuda"], in_process=True)
     payload = json.loads(stdout.strip().splitlines()[-1])
     ref = gpu.track_file(wav, **kw)
     check(payload["n_frames"] == ref.fused_pulse.shape[0], "infer --separation learned n_frames")
@@ -1839,7 +1947,8 @@ def _mesh_two_ranks(bank: np.ndarray, smi: str) -> None:
 def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
     """pretext --data-parallel --stem-root on phase 8's stems (one NCCL rank
     a card), with the VQT launches of the bank build that its rank 0 counts
-    and prints, and infer --params with the checkpoint it wrote."""
+    and prints, and infer --params with the checkpoint it wrote, in this
+    process."""
     import shutil
 
     from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
@@ -1853,7 +1962,7 @@ def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
     for name, args in (("pretext", ["pretext", "--data-parallel", "--stem-root", stem_root, "--epochs", "2",
                                     "--checkpoint", ckpt]),
                        ("infer", ["infer", wav, "--params", ckpt])):
-        secs[name], stdout = _cli(args, timeout=600)
+        secs[name], stdout = _cli(args, timeout=600, in_process=name == "infer")
         lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
         check(name != "pretext" or len(lines) == 1, f"pretext --data-parallel printed {len(lines)} JSON lines")
         out[name] = json.loads(lines[-1])

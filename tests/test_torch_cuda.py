@@ -224,29 +224,68 @@ def _golden():
     return np.load(os.path.join(os.path.dirname(__file__), "fixtures", "dbn_golden.npz"))
 
 
-def test_viterbi_kernel_matches_plain_exactly(cuda):
-    """Ragged songs (one of a single frame) zero-padded into one batch: the
-    kernel's final scores, tempo choices and best states equal the plain
-    frame loop's on the card bit for bit, in one launch."""
-    from zeronotesamba_torch.decode import dbn_device
-    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig
+def _viterbi_equal_on_card(la, lna, space, threads=0):
     from zeronotesamba_torch.ops.cuda import dbn_kernel
 
-    gold = _golden()
-    acts = [gold[k].astype(np.float64) for k in ("act_clean_bpm95", "act_noise_only", "act_short_3s")]
-    acts.append(np.full(1, 0.5))
-    t_pad = max(len(a) for a in acts)
-    masked = np.stack([np.pad(a, (0, t_pad - len(a))) for a in acts])
-    cfg = DBNBeatDecoderConfig()
-    la, lna = (torch.tensor(x.astype(np.float32), device=cuda) for x in dbn_device._observations(masked, cfg))
-    space = dbn_device._space(cfg, cuda)
     before = dict(dbn_kernel.LAUNCHES)
-    got = dbn_kernel.viterbi_forward(la, lna, space)
+    got = dbn_kernel._viterbi_forward_cuda(la, lna, space, threads) if threads else \
+        dbn_kernel.viterbi_forward(la, lna, space)
     assert dbn_kernel.LAUNCHES["viterbi"] == before["viterbi"] + 1
     ref = dbn_kernel.viterbi_forward_plain(la, lna, space)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("threads", [0, 64, 512])
+@pytest.mark.parametrize("shape", ["ragged", "1x1876", "ties"])
+def test_viterbi_kernel_matches_plain_exactly(cuda, shape, threads):
+    """Ragged songs (one of a single frame) zero-padded into one batch, one
+    30 s song (1,876 frames), and observations that tie many states (all
+    equal, and on a grid of quarters): the kernel's final scores, tempo
+    choices and best states equal the plain frame loop's on the card bit for
+    bit, in one launch, at the default block and at 64 and 512 threads."""
+    from zeronotesamba_torch.decode import dbn_device
+    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig
+
+    cfg = DBNBeatDecoderConfig()
+    space = dbn_device._space(cfg, cuda)
+    if shape == "ties":
+        from test_torch_viterbi_rounds import _grid_obs
+
+        same = torch.full((2, 300), -0.5, device=cuda)
+        _viterbi_equal_on_card(same, same, space, threads)
+        la, lna = (torch.tensor(x, device=cuda) for x in _grid_obs(np.random.default_rng(7), 3, 400))
+        _viterbi_equal_on_card(la, lna, space, threads)
+        return
+    gold = _golden()
+    if shape == "ragged":
+        acts = [gold[k].astype(np.float64) for k in ("act_clean_bpm95", "act_noise_only", "act_short_3s")]
+        acts.append(np.full(1, 0.5))
+    else:
+        acts = [np.tile(gold["act_ramp_70_140"].astype(np.float64), 2)[:1876]]
+    t_pad = max(len(a) for a in acts)
+    masked = np.stack([np.pad(a, (0, t_pad - len(a))) for a in acts])
+    la, lna = (torch.tensor(x.astype(np.float32), device=cuda) for x in dbn_device._observations(masked, cfg))
+    _viterbi_equal_on_card(la, lna, space, threads)
+
+
+@pytest.mark.parametrize("n_frames", [0, 1, 2, 7, 41, 300])
+@pytest.mark.parametrize("lengths", [(3, 1, 4, 2), (2, 5, 3, 2), (4, 3, 6, 5)])
+def test_viterbi_kernel_on_short_chains(cuda, lengths, n_frames):
+    """Hand-made spaces whose shortest chain is 1, 2 or 3 states (R = 1, 2,
+    3), ties everywhere and -inf tempo columns (tests/test_torch_viterbi_rounds.py),
+    T = 0, one frame, T < R and T not a multiple of R: equal bit for bit."""
+    from test_torch_viterbi_rounds import _grid_obs, _hand_space
+
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+
+    space = _hand_space(lengths, seed=sum(lengths) + n_frames)
+    space = dbn_kernel.viterbi_space(space.log_trans.numpy(), space.firsts.numpy(), space.lasts.numpy(),
+                                     space.is_beat.numpy(), cuda)
+    assert space.frames_per_round == min(lengths)
+    la, lna = (torch.tensor(x, device=cuda) for x in _grid_obs(np.random.default_rng(n_frames), 3, n_frames))
+    _viterbi_equal_on_card(la, lna, space)
 
 
 def test_decode_beats_device_matches_decode_beats(cuda):

@@ -7,12 +7,16 @@ of csrc/dbn_viterbi.cu on a card, its plain PyTorch version on the CPU
 frame's best state return to the host, which backtracks every song from ITS
 final valid frame, so a batched decode equals a per-song decode of the
 unpadded activation. The observation log-probs are computed in float64 on
-the host, as the JAX code does, and cast to float32.
+the host, as the JAX code does, and cast to float32. Both decode functions
+can report their two stages' seconds in ``stage_s``: ``forward_s`` (the
+observations, the forward pass and the copy back) and ``backtrack_s`` (the
+host backtrack and the beat picking).
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import List, Sequence
 
 import numpy as np
@@ -76,12 +80,19 @@ def viterbi_path_device(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBN
 
 
 def decode_beats_device(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(), *,
-                        device: str | torch.device = "cuda") -> np.ndarray:
+                        device: str | torch.device = "cuda", stage_s: dict | None = None) -> np.ndarray:
     """Beat times via the device Viterbi (equivalent to decode_beats)."""
     act = np.asarray(activations, dtype=np.float64).ravel()
     if act.size == 0:
         return np.empty(0)
-    return _beats(viterbi_path_device(act, cfg, device=device), act, cfg)
+    t0 = time.perf_counter()
+    log_act, log_nact = _observations(act, cfg)
+    v_final, fcs, _ = viterbi_forward_device(log_act[None], log_nact[None], cfg, device=device)
+    t1 = time.perf_counter()
+    beats = _beats(_backtrack(int(np.argmax(v_final[0])), fcs[0], cfg), act, cfg)
+    if stage_s is not None:
+        stage_s.update(forward_s=t1 - t0, backtrack_s=time.perf_counter() - t1)
+    return beats
 
 
 def decode_beats_batch_device(
@@ -90,6 +101,7 @@ def decode_beats_batch_device(
     cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(),
     *,
     device: str | torch.device = "cuda",
+    stage_s: dict | None = None,
 ) -> List[np.ndarray]:
     """Batched decode: (B, T_pad) activations + per-song valid lengths.
 
@@ -97,12 +109,14 @@ def decode_beats_batch_device(
     forward pass, and each song backtracks from the best state at its own
     final valid frame over fc[:nf], which makes the result exactly equal to a
     per-song decode of the unpadded activation."""
+    t0 = time.perf_counter()
     acts = np.asarray(activations, dtype=np.float64)
     masked = acts.copy()
     for b, nf in enumerate(n_frames):
         masked[b, nf:] = 0.0
     log_act, log_nact = _observations(masked, cfg)
     _, fcs, bests = viterbi_forward_device(log_act, log_nact, cfg, device=device)
+    t1 = time.perf_counter()
     out = []
     for b, nf in enumerate(n_frames):
         if nf <= 0:
@@ -111,4 +125,6 @@ def decode_beats_batch_device(
             continue
         path = _backtrack(int(bests[b, nf - 1]), fcs[b, :nf], cfg)
         out.append(_beats(path, masked[b, :nf], cfg))
+    if stage_s is not None:
+        stage_s.update(forward_s=t1 - t0, backtrack_s=time.perf_counter() - t1)
     return out

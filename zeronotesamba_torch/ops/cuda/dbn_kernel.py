@@ -8,6 +8,18 @@ tempo choices into the chain heads and each frame's best state.
 frame loop inside the kernel) for CUDA tensors and runs the plain version,
 a loop over frames of (batch, n_states) tensor operations, for CPU tensors;
 there is no fallback between the two. ``LAUNCHES`` counts kernel launches.
+
+The kernel runs the frames in rounds of R = ``frames_per_round(firsts,
+lasts)``: the largest of ``ROUND_FRAMES`` (the round lengths it is compiled
+for) that is at most the shortest chain's length, 17 for the default state
+space (60 * 62.5 / 215 frames), 1 for a space with a one-state chain. Frame t
+reads the last state of each chain, a value that entered the chain's head L
+frames before; with R <= every L, the R frames of a round read only values
+that exist at the round's start, so three block barriers serve R frames.
+``transition_bands`` gives each tempo column's rows of finite log-probability:
+a candidate from outside it is -inf and never the first maximum unless every
+candidate is, in which case the choice is row 0. Neither changes a value:
+the kernel equals the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +32,26 @@ import numpy as np
 import torch
 
 LAUNCHES = {"viterbi": 0}
+# The round lengths csrc/dbn_viterbi.cu is instantiated for (the cases of zns_dbn_viterbi's switch).
+ROUND_FRAMES = (1, 2, 3, 4, 6, 8, 12, 16, 17, 24)
+
+
+def frames_per_round(firsts: np.ndarray, lasts: np.ndarray) -> int:
+    """R for a state space: the largest of ROUND_FRAMES that is at most the
+    shortest chain's length (lasts[i] - firsts[i] + 1)."""
+    shortest = int(np.min(np.asarray(lasts, np.int64) - np.asarray(firsts, np.int64))) + 1
+    return max(r for r in ROUND_FRAMES if r <= shortest)
+
+
+def transition_bands(log_trans: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per tempo column j, the first and last row i with log_trans[i, j] >
+    -inf, as int32 (lo, hi); (0, -1) for a column with none."""
+    finite = np.asarray(log_trans) > -np.inf
+    n = finite.shape[0]
+    any_row = finite.any(axis=0)
+    lo = np.where(any_row, finite.argmax(axis=0), 0)
+    hi = np.where(any_row, n - 1 - finite[::-1].argmax(axis=0), -1)
+    return lo.astype(np.int32), hi.astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +64,9 @@ class ViterbiSpace:
     lasts: torch.Tensor  # (n_int,) int32
     is_beat: torch.Tensor  # (n_states,) uint8
     v0: float  # the initial score of every state (a float32 value)
+    band_lo: torch.Tensor  # (n_int,) int32, transition_bands
+    band_hi: torch.Tensor  # (n_int,) int32
+    frames_per_round: int  # R, frames_per_round
 
     @property
     def n_int(self) -> int:
@@ -53,12 +88,19 @@ def viterbi_space(log_trans: np.ndarray, firsts: np.ndarray, lasts: np.ndarray, 
             or lasts[-1] != n_states - 1 or not np.array_equal(firsts[1:], lasts[:-1] + 1)
             or np.any(lasts < firsts)):
         raise ValueError("the state space must be n_int chains of consecutive states, in order, covering every state")
+    log_trans = np.asarray(log_trans, np.float32)
+    if np.isnan(log_trans).any() or (log_trans == np.inf).any():
+        raise ValueError("log_trans must hold log-probabilities: finite values or -inf")
+    lo, hi = transition_bands(log_trans)
     return ViterbiSpace(
-        log_trans=torch.tensor(np.asarray(log_trans, np.float32), device=device),
+        log_trans=torch.tensor(log_trans, device=device),
         firsts=torch.tensor(firsts, dtype=torch.int32, device=device),
         lasts=torch.tensor(lasts, dtype=torch.int32, device=device),
         is_beat=torch.tensor(np.asarray(is_beat, np.uint8), device=device),
         v0=float(np.float32(-np.log(float(n_states)))),
+        band_lo=torch.tensor(lo, device=device),
+        band_hi=torch.tensor(hi, device=device),
+        frames_per_round=frames_per_round(firsts, lasts),
     )
 
 
@@ -88,22 +130,34 @@ def _entry() -> ctypes._CFuncPtr:
 
     fn = load("dbn_viterbi").zns_dbn_viterbi
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, p, i64, i64, p, p, p, i32, p, i32, ctypes.c_float, p, p, p, p]
+    fn.argtypes = [p, p, i64, i64, p, p, p, p, p, i32, p, i32, ctypes.c_float, i32, i32, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _viterbi_forward_cuda(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace):
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _viterbi_forward_cuda(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace, threads: int = 0):
+    """One launch; ``threads`` a block (a multiple of 32 from 64 to 512), or
+    0: 512 where the batch leaves SMs idle (fewer songs than twice the
+    card's SMs), else 256, as chip_smoke.py's sweep of the decode shapes
+    found fastest."""
     batch, n_frames = log_act.shape
     dev = log_act.device
+    if threads == 0:
+        threads = 512 if batch < 2 * _sm_count(dev) else 256
     v_final = torch.empty((batch, space.n_states), dtype=torch.float32, device=dev)
     fc = torch.empty((batch, n_frames, space.n_int), dtype=torch.int16, device=dev)
     best = torch.empty((batch, n_frames), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry()(log_act.data_ptr(), log_nact.data_ptr(), batch, n_frames, space.log_trans.data_ptr(),
-                       space.firsts.data_ptr(), space.lasts.data_ptr(), space.n_int, space.is_beat.data_ptr(),
-                       space.n_states, space.v0, v_final.data_ptr(), fc.data_ptr(), best.data_ptr(), stream)
+                       space.firsts.data_ptr(), space.lasts.data_ptr(), space.band_lo.data_ptr(),
+                       space.band_hi.data_ptr(), space.n_int, space.is_beat.data_ptr(), space.n_states, space.v0,
+                       space.frames_per_round, threads, v_final.data_ptr(), fc.data_ptr(), best.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dbn_viterbi kernel launch failed: CUDA error {err}")
     LAUNCHES["viterbi"] += 1
