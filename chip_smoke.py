@@ -66,7 +66,13 @@ Phases, each printing one JSON line:
                  ntxent on the global batch; pretext --data-parallel
                  --stem-root on phase 8's stems as a subprocess (one NCCL rank
                  a card), the VQT launches of its bank build as its rank 0
-                 counts and prints them, and infer --params with its checkpoint.
+                 counts and prints them, and infer --params with its checkpoint;
+                 then the time and model axes: parallel/dryrun.entry() card vs
+                 CPU; dryrun_multichip(4) on four gloo ranks sharing the card,
+                 each stage's lap; and one supervised step of the twin at
+                 batch 8 x 768 (dropout 0) on a (1, 2, 1) and a (1, 1, 2) mesh
+                 of two gloo ranks against the single-device step, with its
+                 time, halo and channel bytes and peak memory a rank.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -172,6 +178,8 @@ MESH_ONE_RANK_ATOL = 1e-7  # a one-rank NCCL mesh step vs the single-device step
 MESH_LOSS_RTOL = 1e-5
 MESH_NTX_GRAD_ATOL = 1e-6  # ntxent_global's gradients vs ntxent on the global batch (tests/test_ntxent.py)
 MESH_SHARD = 2  # stem-bank tracks a rank in the two-rank step
+MESH_DRYRUN_RANKS = 4  # dryrun_multichip's ranks, gloo, sharing the card
+MESH_AXES_STEPS = 3  # timed supervised steps on each (1, 2, 1) and (1, 1, 2) mesh after the checked one
 
 
 def out_line(line: str) -> None:
@@ -1833,7 +1841,7 @@ def _mesh_one_rank(bank: np.ndarray, smi: str) -> None:
                 ms[name] = time_ms(lambda: step(state, bank_dev, local, starts, dropout_generator(1, 1, "cuda")),
                                    n=3, warmup=1)
             params = list(state.model.parameters())
-            ms["grad_all_reduce"] = time_ms(lambda: all_reduce_grads(params, mesh), n=20)
+            ms["grad_all_reduce"] = time_ms(lambda: all_reduce_grads(params, mesh.group), n=20)
             n_grad = sum(p.numel() for p in params)
             ntx = {}
             for name, fn in (("ntxent", lambda a, p: ntxent(a, p, cfg.temperature)),
@@ -1983,11 +1991,172 @@ def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
     shutil.rmtree(run_dir)  # 107 MB of twin weights, checked above
 
 
+def _mesh_entry(smi: str) -> None:
+    """parallel/dryrun.entry() on the card against the CPU, from the same
+    seeded weights, at the pulse tolerance."""
+    from zeronotesamba_torch.parallel.dryrun import entry
+
+    outs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        fn, args = entry(device=dev)
+        t0 = time.perf_counter()
+        outs[dev] = fn(*args).cpu()
+        secs[dev] = time.perf_counter() - t0
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    check(outs["cuda"].shape == (2, 313) and bool(torch.isfinite(outs["cuda"]).all()),
+          f"entry() output {tuple(outs['cuda'].shape)}")
+    check(err <= PULSE_ATOL, f"entry() card vs CPU max |err| {err} > {PULSE_ATOL}")
+    emit("mesh", part="entry", shape=list(outs["cuda"].shape), max_abs_err_card_vs_cpu=err, tol=PULSE_ATOL,
+         seconds_card_first_call=secs["cuda"], seconds_cpu=secs["cpu"], card=smi)
+
+
+def _mesh_dryrun(smi: str) -> None:
+    """dryrun_multichip(4) on four gloo ranks sharing the card (one card:
+    more ranks than cards). A stage that fails raises, so every lap listed
+    passed."""
+    from zeronotesamba_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    laps = dryrun_multichip(MESH_DRYRUN_RANKS, device="cuda")
+    check(laps[-1]["stage"] == "tp", f"dry run ended at {laps[-1]}")
+    emit("mesh", part="dryrun", ranks=MESH_DRYRUN_RANKS, backend="gloo", device="cuda:0 (shared)",
+         stages=[dict(lap, passed=True) for lap in laps], seconds_with_spawn=time.perf_counter() - t0, card=smi)
+
+
+def _mesh_axes_rank(mesh0, t_spawn, shapes, arrays, lr):
+    """One of two gloo ranks sharing the card. Rank 0 takes the
+    single-device supervised step (the reference, its max-pool and ReLU
+    decisions recorded); every rank records the same decisions from a
+    forward of its own, then takes one step on each mesh of ``shapes``,
+    replaying its share of them, and times MESH_AXES_STEPS more. Rank 0
+    returns the errors against the single-device step; every rank its times,
+    halo and channel bytes and peak memory."""
+    from zeronotesamba_torch.parallel import sequence, tensor
+    from zeronotesamba_torch.parallel.mesh import gather_params_tp, gather_tp, make_mesh, shard_params_tp, \
+        spectrogram_sharding
+    from zeronotesamba_torch.train.state import downstream_learning_rate
+    from zeronotesamba_torch.train.supervised import SupervisedConfig, init_state, train_step
+    from zeronotesamba_torch.utils.parity import PiecewiseDecisions
+
+    torch.backends.cudnn.deterministic = True
+    timeline = {"in_process_group": time.time() - t_spawn}
+    dev = mesh0.device
+    cfg = SupervisedConfig(status="pretrained", lr=lr)
+    step_lr = downstream_learning_rate(cfg.status, cfg.pre, cfg.lr)
+    full = [torch.as_tensor(a, device=dev) for a in arrays]
+
+    def timed_steps(state, xs, mesh):
+        times = []
+        for _ in range(MESH_AXES_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss, _ = train_step(state, *xs, None, cfg.status, mesh=mesh)
+            check(math.isfinite(loss.item()), "mesh axes step loss not finite")  # the read syncs
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    decisions, ref, out = PiecewiseDecisions(), None, {"rank": mesh0.flat_rank, "device": str(dev), "meshes": {}}
+    state = init_state(cfg, None, 0, device=dev)
+    if mesh0.flat_rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        with decisions.record():
+            state, loss, _ = train_step(state, *full, None, cfg.status)
+        ref = dict(loss=loss.item(), params={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                   grads={k: p.grad.clone() for k, p in state.model.named_parameters()})
+        step_ms = timed_steps(state, full, None)
+        out["single"] = dict(ms_per_step=statistics.median(step_ms), step_ms=step_ms,
+                             max_memory_allocated=torch.cuda.max_memory_allocated())
+    else:
+        with torch.no_grad(), decisions.record():
+            state.model.eval()  # a train step without a generator runs with dropout off
+            state.model.logits(full[0][:, 0:1], full[0][:, 1:2])
+    del state
+    timeline["reference"] = time.time() - t_spawn
+    eps = torch.finfo(torch.float32).eps
+    for shape in shapes:
+        mesh = make_mesh(*shape, device=dev)
+        state = init_state(cfg, None, 0, device=dev)
+        if shape[2] > 1:
+            shard_params_tp(mesh, state.model)
+        xs = [spectrogram_sharding(mesh)(a) for a in full]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts0 = sequence.COUNTS["halo_bytes"], tensor.COUNTS["channel_bytes"]
+        with decisions.shard(mesh).replay():
+            state, loss, _ = train_step(state, *xs, None, cfg.status, mesh=mesh)
+        bytes_step = sequence.COUNTS["halo_bytes"] - counts0[0], tensor.COUNTS["channel_bytes"] - counts0[1]
+        grads = gather_tp(mesh, state.model, {k: p.grad for k, p in state.model.named_parameters()})
+        params = gather_params_tp(mesh, state.model)
+        step_ms = timed_steps(state, xs, mesh)
+        res = dict(loss=loss.item(), ms_per_step=statistics.median(step_ms), step_ms=step_ms,
+                   halo_bytes_per_step=bytes_step[0], channel_bytes_per_step=bytes_step[1],
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        if ref is not None:
+            rel = {k: ((grads[k] - g).abs().max() / g.abs().max()).item() for k, g in ref["grads"].items()}
+            worst = max(rel, key=rel.get)
+            res.update(loss_single=ref["loss"], loss_rel_err=abs(loss.item() - ref["loss"]) / abs(ref["loss"]),
+                       max_grad_err_of_tensor_max=rel[worst], worst_grad=worst,
+                       max_param_excess_over_2lr=max(((params[k] - v).abs() - 2 * step_lr - 2 * eps * v.abs())
+                                                     .max().item() for k, v in ref["params"].items()))
+        out["meshes"]["x".join(map(str, shape))] = res
+        timeline["x".join(map(str, shape))] = time.time() - t_spawn
+        del state, grads, params
+    out["timeline"] = timeline
+    return out
+
+
+def _mesh_axes_steps(smi: str) -> None:
+    """The supervised step at the train cell's shape (the twin
+    FusedDownstream, batch 8 x 768, float32, TF32 off, dropout 0) on a
+    (1, 2, 1) and a (1, 1, 2) mesh of two gloo ranks sharing the card,
+    against the single-device step: loss MESH_LOSS_RTOL, gradients
+    PARITY_GRAD_REL of each tensor's largest (both with the single-device
+    step's max-pool and ReLU decisions replayed), parameters 2 lr plus
+    float32 rounding."""
+    from zeronotesamba_torch.parallel.launch import run_ranks
+    from zeronotesamba_torch.train.state import downstream_learning_rate
+
+    batch, frames = 8, PARITY_FRAMES
+    g = np.random.default_rng(8)
+    vqt = (g.standard_normal((batch, 2, 96, frames)) * 4.0 - 6.0).astype(np.float32)
+    mask = np.ones((batch, frames), np.float32)
+    mask[:, 751:] = 0.0  # a 12 s song's 751 frames in its bucket
+    mask[3, 500:] = 0.0  # and one shorter song
+    pulse = (g.uniform(size=(batch, frames)) < 0.05).astype(np.float32) * mask
+    shapes = ((1, 2, 1), (1, 1, 2))
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_axes_rank, 2, "gloo", time.time(), shapes, (vqt, pulse, mask), 1e-4,
+                      device="cuda:0", timeout_s=600)
+    seconds = time.perf_counter() - t0
+    lr = downstream_learning_rate("pretrained", "finetune", 1e-4)
+    for name, res in ranks[0]["meshes"].items():
+        check(res["loss_rel_err"] <= MESH_LOSS_RTOL, f"mesh {name} step loss {res['loss']} vs {res['loss_single']}")
+        check(res["max_grad_err_of_tensor_max"] <= PARITY_GRAD_REL,
+              f"mesh {name} gradient of {res['worst_grad']}: {res['max_grad_err_of_tensor_max']} of its largest")
+        check(res["max_param_excess_over_2lr"] <= 0.0,
+              f"mesh {name} params exceed 2 lr by {res['max_param_excess_over_2lr']}")
+        check((res["halo_bytes_per_step"] > 0) == (name == "1x2x1") and (res["channel_bytes_per_step"] > 0)
+              == (name == "1x1x2"), f"mesh {name} exchanged {res['halo_bytes_per_step']} halo bytes and "
+              f"{res['channel_bytes_per_step']} channel bytes")
+    emit("mesh", part="axes_steps", backend="gloo", world=2, device="cuda:0 (shared)", batch=batch, frames=frames,
+         dropout=0.0, lr=lr, single=ranks[0]["single"],
+         meshes={name: dict(res, per_rank=[dict(ms_per_step=r["meshes"][name]["ms_per_step"],
+                                                max_memory_allocated=r["meshes"][name]["max_memory_allocated"],
+                                                halo_bytes_per_step=r["meshes"][name]["halo_bytes_per_step"],
+                                                channel_bytes_per_step=r["meshes"][name]["channel_bytes_per_step"])
+                                           for r in ranks])
+                 for name, res in ranks[0]["meshes"].items()},
+         rank_timelines=[r["timeline"] for r in ranks], seconds_with_spawn=seconds, card=smi)
+
+
 def phase_mesh(stats: dict, bank: np.ndarray, smi: str) -> None:
     t0 = time.perf_counter()
     _mesh_one_rank(bank, smi)
     _mesh_two_ranks(bank, smi)
     _mesh_cli(stats, bank, smi)
+    _mesh_entry(smi)
+    _mesh_dryrun(smi)
+    _mesh_axes_steps(smi)
     emit("mesh", part="done", seconds=time.perf_counter() - t0, card=smi)
 
 

@@ -109,16 +109,18 @@ def _rank_checks(mesh, inp):
     """Every port-side check on one rank of the two-rank world."""
     torch.set_num_threads(1)
     out = {"shape": dict(mesh.shape), "rank": mesh.rank, "size": mesh.size, "device": str(mesh.device)}
-    errors = {}
+    errors, built = {}, {}
     for name, call in (("data1", lambda: pmesh.make_mesh(data=1)), ("model2", lambda: pmesh.make_mesh(model=2)),
                        ("time2", lambda: pmesh.make_mesh(data=1, time=2)),
                        ("rows3", lambda: pmesh.shard_batch(mesh, np.zeros((3, 2))))):
         try:
-            call()
+            made = call()
             errors[name] = None
-        except (ValueError, NotImplementedError) as e:
+            if isinstance(made, pmesh.Mesh):
+                built[name] = dict(shape=made.shape, coords=made.coords, rank=made.rank, size=made.size)
+        except ValueError as e:
             errors[name] = (type(e).__name__, str(e))
-    out["errors"] = errors
+    out["errors"], out["built"] = errors, built
     out["generator_seed"] = pmesh.rank_generator(torch.Generator().manual_seed(3), mesh.rank).initial_seed()
     shared = pmesh.host_array_from_rank0(np.arange(12.0).reshape(4, 3) if mesh.rank == 0 else None, mesh)
     out["shared"] = dict(type=type(shared).__name__, value=np.array(shared),
@@ -231,8 +233,13 @@ def test_make_mesh_sizes_and_refusals(ranks):
     for r in ranks:
         assert r["shape"] == {"data": 2, "time": 1, "model": 1} and r["size"] == 2 and r["device"] == "cpu"
         assert r["errors"]["data1"] == ("ValueError", "mesh 1x1x1 != 2 devices")  # the JAX text
-        for name in ("model2", "time2"):
-            assert r["errors"][name][0] == "NotImplementedError" and "item 10" in r["errors"][name][1]
+        # The two ranks lie on the model axis, or on the time axis, of a
+        # mesh with one data rank: each one's data coordinate is 0.
+        assert r["errors"]["model2"] is None and r["errors"]["time2"] is None
+        assert r["built"]["model2"] == dict(shape={"data": 1, "time": 1, "model": 2},
+                                            coords={"data": 0, "time": 0, "model": r["rank"]}, rank=0, size=1)
+        assert r["built"]["time2"] == dict(shape={"data": 1, "time": 2, "model": 1},
+                                           coords={"data": 0, "time": r["rank"], "model": 0}, rank=0, size=1)
         assert r["errors"]["rows3"][0] == "ValueError"
     with pytest.raises(RuntimeError, match="process group"):
         pmesh.make_mesh()

@@ -5,6 +5,13 @@ models with torch BCELoss on one full song per step (loader.py:16,
 epochs.py:48-79). The bucketed engine instead trains on length-padded
 batches with a frame mask, so the loss reduces only over valid frames: mean
 semantics per song match the reference's unmasked mean.
+
+With a process ``group`` (a mesh's data x time ranks, parallel/mesh.py;
+None: this process alone) the
+mean is over the global batch: the numerator and the denominator are each
+summed over the group before the one division, as the JAX loss reduces a
+sharded array. A mean of the ranks' means would weigh the shards equally,
+which is wrong once their masks differ, as ragged songs make them.
 """
 
 from __future__ import annotations
@@ -14,12 +21,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from zeronotesamba_torch.parallel.mesh import psum
 
-def _masked_mean(ll: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-    if mask is None:
+
+def _masked_mean(ll: torch.Tensor, mask: torch.Tensor | None, group=None) -> torch.Tensor:
+    if mask is None and group is None:
         return ll.mean()
-    m = mask.float()
-    return (ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    m = torch.ones_like(ll) if mask is None else mask.float()
+    num, den = (ll * m).sum(), m.sum()
+    if group is not None:
+        num, den = psum(torch.stack([num, den]), group)
+    return num / torch.clamp_min(den, 1.0)
 
 
 def _softplus(z: torch.Tensor) -> torch.Tensor:
@@ -45,6 +57,7 @@ def masked_bce_logits(
     target: torch.Tensor,
     mask: torch.Tensor | None = None,
     pos_weight: float | torch.Tensor = 1.0,
+    group=None,
 ):
     """Numerically stable logits-space BCE: bounded loss AND bounded gradient
     (sigmoid(l) - t).
@@ -58,7 +71,7 @@ def masked_bce_logits(
     t = target.float()
     # -log s(l) = softplus(-l); -log(1-s(l)) = softplus(l), evaluated stably.
     ll = pos_weight * t * _softplus(-l) + (1.0 - t) * _softplus(l)
-    return _masked_mean(ll, mask)
+    return _masked_mean(ll, mask, group)
 
 
 def masked_bce_twin_logits(
@@ -68,6 +81,7 @@ def masked_bce_twin_logits(
     mask: torch.Tensor | None = None,
     reduction: str = "max",
     pos_weight: float | torch.Tensor = 1.0,
+    group=None,
 ):
     """Stable BCE for the fused downstream model from per-stream logits.
 
@@ -77,11 +91,11 @@ def masked_bce_twin_logits(
     log-sigmoid + logaddexp.
     """
     if reduction == "max":
-        return masked_bce_logits(torch.maximum(anc_logits, pos_logits), target, mask, pos_weight)
+        return masked_bce_logits(torch.maximum(anc_logits, pos_logits), target, mask, pos_weight, group)
     la, lb = anc_logits.float(), pos_logits.float()
     t = target.float()
     log2 = math.log(2.0)
     logp = torch.logaddexp(F.logsigmoid(la), F.logsigmoid(lb)) - log2
     log1mp = torch.logaddexp(F.logsigmoid(-la), F.logsigmoid(-lb)) - log2
     ll = -(pos_weight * t * logp + (1.0 - t) * log1mp)
-    return _masked_mean(ll, mask)
+    return _masked_mean(ll, mask, group)

@@ -98,7 +98,9 @@ class BockTCN(nn.Module):
             h = getattr(self, f"tcn_d{d}")(h, generator)
         return h.float()
 
-    def logits(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
+        if mesh is not None:
+            raise NotImplementedError("BockTCN has no mesh path: its convs take no halo exchange")
         return self.head(self.embed(x, generator).transpose(1, 2))[..., 0]
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -26,6 +26,14 @@ Dropout in training mode is Flax's: each cell is kept with probability
 ``generator`` the forward pass is given (on the input's device), or from
 torch's default generator without one, so a seeded training run repeats
 its masks exactly. Eval mode draws nothing.
+
+On a mesh (parallel/mesh.py; the ``mesh`` argument of every forward, None
+by default) the encoder reads this rank's frames of its songs and, with a
+model axis, its share of every conv's output channels (``shard_params_tp``).
+Each conv then takes its halo frames from its time neighbours
+(parallel/sequence.py) and its output channels are gathered over the model
+ranks after dropout (parallel/tensor.py); the pools are frequency-only and
+need no exchange. The output is this rank's frames, all 128 channels.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from zeronotesamba_torch.parallel import sequence, tensor
 
 CONV_SPECS: Sequence[Tuple[int, Tuple[int, int]]] = (
     (64, (3, 11)),
@@ -128,18 +138,33 @@ class Encoder(nn.Module):
     def _dropout(self, h: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         return flax_dropout(h, self.dropout_rate, self.training, generator)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def _conv(self, i: int, h: torch.Tensor, mesh) -> torch.Tensor:
+        """Conv ``i`` with SAME padding; on a mesh, over this rank's frames
+        and output channels."""
+        conv = getattr(self, f"cv{i + 1}")
+        w, b = conv.weight.to(h.dtype), conv.bias.to(h.dtype)
+        if mesh is None:
+            return F.conv2d(h, w, b, padding=conv.padding)
+        if w.shape[0] * mesh.shape["model"] != CONV_SPECS[i][0]:
+            raise ValueError(f"cv{i + 1} holds {w.shape[0]} output channels on a model axis of "
+                             f"{mesh.shape['model']}: shard the parameters with shard_params_tp")
+        kh, kw = conv.kernel_size
+        h = sequence.exchange_halo(tensor.replicated_input(h, mesh), kw // 2, mesh)
+        return F.conv2d(h, w, b, padding=(kh // 2, 0))
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
         if x.ndim != 4 or x.shape[1] != 1:
             raise ValueError("Encoder expects (B, 1, freq, time)")
         h = ((x - INPUT_MEAN) / INPUT_STD).to(self.compute_dtype)
         for i in range(len(CONV_SPECS)):
-            conv = getattr(self, f"cv{i + 1}")
-            h = F.conv2d(h, conv.weight.to(h.dtype), conv.bias.to(h.dtype), padding=conv.padding)
+            h = self._conv(i, h, mesh)
             if i in POOL_AFTER:
                 w = POOL_AFTER[i]
                 h = F.max_pool2d(h, kernel_size=(w, 1), stride=(w, 1))
             h = F.relu(h)
             h = self._dropout(h, generator)
+            if mesh is not None:
+                h = tensor.gather_channels(h, mesh)
         # (B, 128, 1, T) -> (B, 128, T)
         return h.squeeze(2).float()
 
@@ -177,14 +202,14 @@ class DSCNN(nn.Module):
         self.pretrained.reset_parameters(generator)
         self.fc1.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.fc1(self.pretrained(x, generator))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
+        return self.fc1(self.pretrained(x, generator, mesh))
 
-    def logits(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.fc1.logits(self.pretrained(x, generator))
+    def logits(self, x: torch.Tensor, generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
+        return self.fc1.logits(self.pretrained(x, generator, mesh))
 
-    def embed(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.pretrained(x, generator)
+    def embed(self, x: torch.Tensor, generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
+        return self.pretrained(x, generator, mesh)
 
 
 class TwinPretext(nn.Module):
@@ -200,11 +225,11 @@ class TwinPretext(nn.Module):
         self.anchor.reset_parameters(generator)
         self.postve.reset_parameters(generator)
 
-    def forward(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None):
-        return self.anchor(anc, generator), self.postve(pos, generator)
+    def forward(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None, mesh=None):
+        return self.anchor(anc, generator, mesh), self.postve(pos, generator, mesh)
 
-    def logits(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None):
-        return self.anchor.logits(anc, generator), self.postve.logits(pos, generator)
+    def logits(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None, mesh=None):
+        return self.anchor.logits(anc, generator, mesh), self.postve.logits(pos, generator, mesh)
 
 
 class FusedDownstream(nn.Module):
@@ -234,10 +259,11 @@ class FusedDownstream(nn.Module):
             return (anc + pos) / 2.0
         return torch.maximum(anc, pos)
 
-    def forward(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.fuse(*self.pretext(anc, pos, generator))
+    def forward(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None,
+                mesh=None) -> torch.Tensor:
+        return self.fuse(*self.pretext(anc, pos, generator, mesh))
 
-    def logits(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None):
+    def logits(self, anc: torch.Tensor, pos: torch.Tensor, generator: torch.Generator | None = None, mesh=None):
         """Per-stream logits; with max fusion sigmoid(max(la, lb)) equals the
         fused probability exactly (sigmoid is monotonic)."""
-        return self.pretext.logits(anc, pos, generator)
+        return self.pretext.logits(anc, pos, generator, mesh)

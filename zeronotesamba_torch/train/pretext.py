@@ -20,6 +20,12 @@ each rank differentiates its share of the global loss, and one flattened
 all-reduce sums the parameter gradients before Adam, so every rank holds
 the same parameters after every step.
 
+On a mesh with time or model axes (parallel/mesh.py) the batch is split
+over the data axis only, and ``ntxent_global``, the loss's mean and the
+gradient all-reduce run in the data group: the time and model ranks repeat
+their data rank's step, as the JAX dry run places the pretext batch over
+``P("data")`` with replicated parameters, and draw its dropout masks.
+
 Dropout: a train step draws its masks from the ``torch.Generator`` it is
 given (train/supervised.dropout_generator builds one per step), and a step
 without a generator runs with dropout off, as in train/supervised.py.
@@ -153,7 +159,7 @@ def _update(state: TrainState, loss_fn, mesh: Optional[Mesh] = None):
     loss, pc, nc = loss_fn(state.model)
     loss.backward()
     if mesh is not None:
-        all_reduce_grads(list(state.model.parameters()), mesh)
+        all_reduce_grads(list(state.model.parameters()), mesh.group)
     state.optimizer.step()
     state.step += 1
     return state, loss.detach(), pc.detach(), nc.detach()

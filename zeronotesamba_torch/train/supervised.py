@@ -16,6 +16,17 @@ seeded from ``dropout_seed`` and the JAX engine's per-step offset
 ``epoch * 100003 + i`` (``dropout_generator``), so a seeded run repeats its
 masks exactly. A step without a generator runs with dropout off, as the JAX
 step does with ``dropout_rng=None``.
+
+``train_step`` and ``eval_step`` take an optional ``mesh``
+(parallel/mesh.py), the port's form of the JAX dry run's dp x sp x tp
+placement: each rank passes its rows and frames of the batch
+(``spectrogram_sharding``), the model's convs exchange halo frames over the
+time axis and, with a model axis, hold their ``shard_params_tp`` share of
+the channels. The masked BCE sums its numerator and denominator over the
+data x time ranks, and the gradients are summed over the same ranks (the
+gradient group: the ranks that share a model coordinate). Each rank draws
+its dropout masks from its own stream (``rank_generator`` at its flat
+rank), so the masks match the single-device step's only in distribution.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from zeronotesamba_torch.metrics.beat import evaluate_beats
 from zeronotesamba_torch.models.baseline import BockTCN
 from zeronotesamba_torch.models.encoder import DSCNN, FusedDownstream
 from zeronotesamba_torch.models.weights import load_weights
+from zeronotesamba_torch.parallel.mesh import Mesh, all_reduce_grads, rank_generator
 from zeronotesamba_torch.train.state import TrainState, make_optimizer
 
 FPS = 62.5
@@ -192,40 +204,49 @@ def dropout_generator(seed: int, offset: int, device: str | torch.device) -> tor
     return torch.Generator(device=device).manual_seed(mixed ^ (mixed >> 32))
 
 
-def _loss_and_out(model, vqt, pulse, mask, generator, status: str, pos_weight):
+def _loss_and_out(model, vqt, pulse, mask, generator, status: str, pos_weight, mesh: Optional[Mesh] = None):
     """Masked logits-space BCE + probability outputs, the one loss of
     train_step and eval_step. With a ``generator`` the model runs in training
     mode and draws dropout from it; without one dropout is off."""
     model.train(generator is not None)
+    group = None if mesh is None else mesh.groups["grad"]
     if status == "pretrained":
-        la, lb = model.logits(vqt[:, 0:1], vqt[:, 1:2], generator)
-        loss = masked_bce_twin_logits(la, lb, pulse, mask, reduction="max", pos_weight=pos_weight)
+        la, lb = model.logits(vqt[:, 0:1], vqt[:, 1:2], generator, mesh)
+        loss = masked_bce_twin_logits(la, lb, pulse, mask, reduction="max", pos_weight=pos_weight, group=group)
         out = torch.sigmoid(torch.maximum(la, lb))
     else:
-        logits = model.logits(vqt[:, 0:1], generator)
-        loss = masked_bce_logits(logits, pulse, mask, pos_weight)
+        logits = model.logits(vqt[:, 0:1], generator, mesh)
+        loss = masked_bce_logits(logits, pulse, mask, pos_weight, group)
         out = torch.sigmoid(logits)
     return loss, out
 
 
 def train_step(state: TrainState, vqt, pulse, mask, generator: Optional[torch.Generator], status: str,
-               pos_weight=1.0):
+               pos_weight=1.0, mesh: Optional[Mesh] = None):
     """One Adam step on (B, S, 96, T) log-VQTs, in logits space
     (losses/bce.py); returns the state, the loss (a 0-d tensor on the
     device) and the probability outputs before the update, for in-loop beat
     scoring like the reference (epochs.py:83-91). The parameters' ``grad``
-    holds this step's gradients afterwards."""
+    holds this step's gradients afterwards.
+
+    With a ``mesh`` the arrays are this rank's shards (module docstring):
+    the loss is the global batch's, the outputs are this rank's frames, and
+    the gradients (this rank's share of each sharded parameter) are the
+    global batch's."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss, out = _loss_and_out(state.model, vqt, pulse, mask, generator, status, pos_weight)
+    gen = generator if mesh is None else rank_generator(generator, mesh.flat_rank)
+    loss, out = _loss_and_out(state.model, vqt, pulse, mask, gen, status, pos_weight, mesh)
     loss.backward()
+    if mesh is not None:
+        all_reduce_grads(list(state.model.parameters()), mesh.groups["grad"])
     state.optimizer.step()
     state.step += 1
     return state, loss.detach(), out.detach()
 
 
-def eval_step(state: TrainState, vqt, pulse, mask, status: str, pos_weight=1.0):
+def eval_step(state: TrainState, vqt, pulse, mask, status: str, pos_weight=1.0, mesh: Optional[Mesh] = None):
     with torch.no_grad():
-        return _loss_and_out(state.model, vqt, pulse, mask, None, status, pos_weight)
+        return _loss_and_out(state.model, vqt, pulse, mask, None, status, pos_weight, mesh)
 
 
 def run_epoch(

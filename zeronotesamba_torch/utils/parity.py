@@ -83,6 +83,26 @@ class PiecewiseDecisions:
         if next(calls, None) is not None:
             raise RuntimeError("replay left recorded decisions unused")
 
+    def shard(self, mesh) -> "PiecewiseDecisions":
+        """The decisions one rank of ``mesh`` (parallel/mesh.py) takes in the
+        sharded forward of the batch recorded here: each (B, C, H, T)
+        decision's rows of this rank's data coordinate, channels of its model
+        coordinate (the encoder pools and applies ReLU to its own channels)
+        and frames of its time coordinate. A pool's argmax, a flat index into
+        its input's (H_in, T) plane, is renumbered into the shard's
+        (H_in, T / t) plane; the pools are frequency-only, so a window's
+        frames are its output's."""
+        out = PiecewiseDecisions()
+        (d, t, m), c = (mesh.shape[a] for a in ("data", "time", "model")), mesh.coords
+        for kind, dec in self.log:
+            rows, chans, frames = dec.shape[0] // d, dec.shape[1] // m, dec.shape[-1] // t
+            part = dec[c["data"] * rows: (c["data"] + 1) * rows, c["model"] * chans: (c["model"] + 1) * chans,
+                       ..., c["time"] * frames: (c["time"] + 1) * frames]
+            if kind == "pool":
+                part = part // dec.shape[-1] * frames + part % dec.shape[-1] - c["time"] * frames
+            out.log.append((kind, part.contiguous()))
+        return out
+
     def differing(self, other: "PiecewiseDecisions") -> int:
         """How many pool windows and ReLUs decided otherwise in ``other``."""
         if [k for k, _ in self.log] != [k for k, _ in other.log]:
