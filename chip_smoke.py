@@ -73,6 +73,17 @@ Phases, each printing one JSON line:
                  batch 8 x 768 (dropout 0) on a (1, 2, 1) and a (1, 1, 2) mesh
                  of two gloo ranks against the single-device step, with its
                  time, halo and channel bytes and peak memory a rank.
+13. multistep -- steps_per_call, cuDNN deterministic: at the train and pretext
+                 cells' shapes (the twin at 8 x 768 in float32 and bf16,
+                 BockTCN at 8 x 768, the zerons step at 16 x 313 in float32
+                 and bf16 and its k = 2 track step in bf16), one K = 8 call
+                 (one CUDA graph, captured at the first call) against 8
+                 eager steps of the same code from the same state: losses,
+                 outputs and parameters bit for bit; ms a step at K = 1 and
+                 K = 8, the capture's seconds, peak memory and the device's
+                 idle share each way from the profiler; then beat
+                 --steps-per-call 8 against --steps-per-call 1 (4 folds,
+                 batch 1): the same fold F1s and results.
 
 Then the kernels summary line, the nvidia-smi line, and a last line
 {"ok": true, "device": {...}}. Every line also goes to
@@ -2160,6 +2171,271 @@ def phase_mesh(stats: dict, bank: np.ndarray, smi: str) -> None:
     emit("mesh", part="done", seconds=time.perf_counter() - t0, card=smi)
 
 
+MULTISTEP_K = 8  # steps a call in the multistep phase
+# (name, engine, status or task, dtype, batch, frames, tracks a step): the
+# train cell's twin and BockTCN at 8 x 768, the pretext cell at 16 x 313.
+MULTISTEP_SHAPES = (
+    ("twin_f32", "supervised", "pretrained", "float32", 8, 768, 1),
+    ("twin_bf16", "supervised", "pretrained", "bfloat16", 8, 768, 1),
+    ("bock_f32", "supervised", "bock", "float32", 8, 768, 1),
+    ("pretext_f32", "pretext", "zerons", "float32", 16, PRETEXT_CROP, 1),
+    ("pretext_bf16", "pretext", "zerons", "bfloat16", 16, PRETEXT_CROP, 1),
+    ("pretext_k2_bf16", "pretext", "zerons", "bfloat16", 16, PRETEXT_CROP, 2),
+)
+
+
+def _profiled(fn) -> dict:
+    """Host seconds of fn() (ended by a synchronize) under torch.profiler
+    with CUDA activity only; the device's busy seconds in it, the union of
+    its kernels' and copies' spans in the trace (their summed durations
+    count overlapping spans twice, ``kernel_sum_s``); and the idle share.
+    No device time in the trace gives None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy = busy_us / 1e6
+    return dict(wall_s=wall, busy_s=busy or None, kernel_sum_s=sum(b - a for a, b in spans) / 1e6,
+                idle_share=1.0 - busy / wall if busy else None)
+
+
+_MULTISTEP_WEIGHTS: dict = {}  # seeded initial weights, drawn once per model
+
+
+def _multistep_case(engine: str, status: str, dtype: str, batch: int, frames: int, tracks: int):
+    """(init, eager_step, multi_step, lr) for one shape: ``init()`` a seeded
+    state; ``eager_step(state, s)`` the current eager path's step s (dropout
+    on) with its loss read; ``multi_step(state, c)`` call c of K steps, its
+    losses read once; each returns (state, losses, outputs)."""
+    from zeronotesamba_torch.train.pretext import (
+        PretextConfig, init_pretext_state, make_staged_train_step, sample_shifts,
+    )
+    from zeronotesamba_torch.train.state import downstream_learning_rate
+    from zeronotesamba_torch.train.supervised import (
+        SupervisedConfig, dropout_generator, init_state, make_multistep_train_step, train_step,
+    )
+
+    k_call, gen = MULTISTEP_K, torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    if engine == "supervised":
+        cfg = SupervisedConfig(status=status, lr=1e-4, bucket_frames=frames, compute_dtype=dtype)
+        n, streams = 2 * batch, 1 if status == "bock" else 2
+        bucket = (torch.randn(n, streams, 96, frames, device="cuda", generator=gen) * 4.0 - 6.0,
+                  (torch.rand(n, frames, device="cuda", generator=gen) < 0.05).float(),
+                  torch.ones(n, frames, device="cuda"))
+        idx = [np.stack([rng.choice(n, batch, replace=False) for _ in range(k_call)]) for _ in range(4)]
+        multi = make_multistep_train_step(status)
+
+        def init():
+            state = init_state(cfg, None, 0, params=_MULTISTEP_WEIGHTS.get(status), device="cuda")
+            _MULTISTEP_WEIGHTS.setdefault(status, {k: v.clone() for k, v in state.model.state_dict().items()})
+            return state
+
+        def eager_step(state, s):
+            rows = torch.as_tensor(idx[s // k_call][s % k_call], device="cuda")
+            state, loss, out = train_step(state, *(t.index_select(0, rows) for t in bucket),
+                                          dropout_generator(11, s, "cuda"), status)
+            return state, [float(loss)], out
+
+        def multi_step(state, c):
+            gens = [dropout_generator(11, c * k_call + k, "cuda") for k in range(k_call)]
+            state, losses, outs = multi(state, *bucket, idx[c], gens)
+            return state, losses.tolist(), outs
+
+        return init, eager_step, multi_step, downstream_learning_rate(status, cfg.pre, cfg.lr)
+    cfg = PretextConfig(batch_size=batch, crop_frames=frames, compute_dtype=dtype, lr=1e-5)
+    bank = torch.randn(8, 2, 96, 2 * frames, device="cuda", generator=gen)
+    shape = (k_call,) if tracks == 1 else (k_call, tracks)
+    calls = [(rng.integers(0, 8, size=shape), np.stack([sample_shifts(2 * frames, batch, frames, rng)
+                                                         for _ in range(k_call * tracks)]).reshape(*shape, batch))
+             for _ in range(4)]
+    single, multi = make_staged_train_step(cfg), make_staged_train_step(cfg, steps_per_call=k_call)
+
+    def init():
+        state = init_pretext_state(cfg, 0, params=_MULTISTEP_WEIGHTS.get("zerons"), device="cuda")
+        _MULTISTEP_WEIGHTS.setdefault("zerons", {k: v.clone() for k, v in state.model.state_dict().items()})
+        return state
+
+    def eager_step(state, s):
+        ti, st = (a[s % k_call] for a in calls[s // k_call])
+        state, loss, pc, nc = single(state, bank, ti, st, dropout_generator(11, s, "cuda"))
+        return state, [float(loss)], torch.stack([pc, nc])
+
+    def multi_step(state, c):
+        gens = [dropout_generator(11, c * k_call + k, "cuda") for k in range(k_call)]
+        state, losses, pcs, ncs = multi(state, bank, *calls[c], gens)
+        return state, losses.tolist(), torch.stack([pcs, ncs], 1)
+
+    return init, eager_step, multi_step, cfg.lr
+
+
+def _graph_pool_bytes() -> int:
+    """Bytes the card holds in the multi-step graphs' memory pool."""
+    from zeronotesamba_torch.train import multistep
+
+    pool = multistep._POOLS[torch.cuda.current_device()]
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _multistep_shape(name, engine, status, dtype, batch, frames, tracks, smi: str) -> None:
+    """One K = 8 graph call against 8 eager steps of the same code from the
+    same state (cuDNN deterministic): the 8 losses, outputs and the final
+    parameters bit for bit, or within the step tolerances with the reason.
+    ms a step at K = 1: the median of those eager steps, each ended by its
+    loss read; at K = 8: the first call less its capture (warm-up and
+    record), over 8, the losses read once. The capture's seconds, peak
+    memory (an eager step's own, over what was allocated before it, beside
+    the graph pool's bytes), and the device's idle share over 8 steps each
+    way (a replay; eager steps) from the profiler."""
+    from zeronotesamba_torch.train import multistep
+
+    t_shape = time.perf_counter()
+    k_call = MULTISTEP_K
+    init, eager_step, multi_step, lr = _multistep_case(engine, status, dtype, batch, frames, tracks)
+    eager, graph = init(), init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e_losses, e_outs, e_ms = [], [], []
+    for s in range(k_call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager, losses, out = eager_step(eager, s)
+        e_ms.append((time.perf_counter() - t0) * 1e3)
+        e_losses += losses
+        e_outs.append(out)
+    peak_eager = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    captures = multistep.COUNTS["captures"]
+    t0 = time.perf_counter()
+    graph, g_losses, g_outs = multi_step(graph, 0)
+    first_call_s = time.perf_counter() - t0
+    peak_graph = torch.cuda.max_memory_allocated()
+    pool_bytes = _graph_pool_bytes()
+    (entry,) = graph.graphs.values()
+    check(multistep.COUNTS["captures"] == captures + 1, f"{name}: the first K-step call did not capture")
+    e_outs = torch.stack(e_outs)
+    pairs = [(a, b) for a, b in zip(graph.model.parameters(), eager.model.parameters())]
+    bitwise = (g_losses == e_losses and torch.equal(g_outs, e_outs)
+               and all(torch.equal(a, b) for a, b in pairs))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g_losses, e_losses))
+    out_err = (g_outs - e_outs).abs().max().item()
+    eps = torch.finfo(torch.float32).eps
+    param_excess = max(((a - b).abs() - 2 * lr * k_call - 2 * eps * b.abs()).max().item() for a, b in pairs)
+    reason = None
+    if not bitwise:
+        reason = (f"graph and eager differ (losses {loss_rel}, outputs {out_err}); held at the step tolerances: "
+                  f"loss {PARITY_LOSS_RTOL} relative, params 2 lr a step")
+        check(loss_rel <= PARITY_LOSS_RTOL and param_excess <= 0.0, f"{name}: {reason}: out of them")
+    prof = {"k8": _profiled(lambda: multi_step(graph, 1))}
+
+    def eager_window():
+        nonlocal eager
+        for s in range(k_call, 2 * k_call):
+            eager, _, _ = eager_step(eager, s)
+
+    prof["k1"] = _profiled(eager_window)
+    check(multistep.COUNTS["captures"] == captures + 1, f"{name}: a replay captured again")
+    k1_ms, k8_ms = statistics.median(e_ms), (first_call_s - entry.seconds) * 1e3 / k_call
+    # The profiler's own host cost slows the eager steps (up to 45% here at
+    # BockTCN's step), so the idle share is also given at the unprofiled
+    # step time, with the device's busy time from the trace.
+    unprofiled = {k: None if prof[k]["busy_s"] is None else 1.0 - prof[k]["busy_s"] / k_call / (ms / 1e3)
+                  for k, ms in (("k1", k1_ms), ("k8", k8_ms))}
+    emit("multistep", part="shape", name=name, engine=engine, model=status, dtype=dtype, batch=batch,
+         frames=frames, tracks=tracks, k=k_call, cudnn_deterministic=True, bitwise=bitwise, reason=reason,
+         max_loss_rel_err=loss_rel, max_out_err=out_err, max_param_excess_over_2lr_k=param_excess,
+         ms_per_step_k1=k1_ms, step_ms_k1=e_ms, ms_per_step_k8=k8_ms, first_call_s=first_call_s,
+         capture_s=entry.seconds, max_memory_allocated_k1=peak_eager, eager_step_peak_bytes=peak_eager - base,
+         max_memory_allocated_k8=peak_graph, graph_pool_bytes=pool_bytes,
+         profiled_ms_per_step_k1=prof["k1"]["wall_s"] * 1e3 / k_call,
+         profiled_ms_per_step_k8=prof["k8"]["wall_s"] * 1e3 / k_call,
+         device_busy_s_k1=prof["k1"]["busy_s"], device_busy_s_k8=prof["k8"]["busy_s"],
+         kernel_sum_s_k1=prof["k1"]["kernel_sum_s"], kernel_sum_s_k8=prof["k8"]["kernel_sum_s"],
+         idle_share_k1=prof["k1"]["idle_share"], idle_share_k8=prof["k8"]["idle_share"],
+         idle_share_k1_unprofiled=unprofiled["k1"], idle_share_k8_unprofiled=unprofiled["k8"],
+         seconds=time.perf_counter() - t_shape, card=smi)
+
+
+def _multistep_beat(ds, smi: str) -> None:
+    """beat --steps-per-call 8 against --steps-per-call 1 on the train
+    phase's 16 songs, in this process, cuDNN deterministic: 4 folds, 2
+    epochs, batch 1, so a fold's 9 training songs make one 8-step call and
+    one single step an epoch (2 folds would leave 4 training songs, no
+    group of 8). Every fold's test F1 (from the experiment's log records)
+    and the CLI's JSON must be equal."""
+    import logging
+    import shutil
+
+    from zeronotesamba_torch.train import multistep
+
+    root = os.path.join(OUT_DIR, "multistep")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "all16")
+    ds.save(data)
+    folds = {}
+
+    class FoldF1(logging.Handler):
+        def emit(self, record):
+            if str(record.msg).startswith("fold %d: test F1"):
+                folds.setdefault(self.k, []).append(float(record.args[1]))
+
+    handler = FoldF1()
+    logger = logging.getLogger("zns_torch.experiments.beat")
+    logger.addHandler(handler)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for k in (8, 1):
+            handler.k = k
+            out = os.path.join(root, f"beat_k{k}.json")
+            before = dict(multistep.COUNTS)
+            secs, _ = _cli(["beat", "--data", data, "--folds", "4", "--max-epochs", "2", "--batch-size", "1",
+                            "--steps-per-call", str(k), "--out", out, "--device", "cuda"], in_process=True)
+            with open(out) as fh:
+                runs[k] = dict(seconds=secs, results=json.load(fh),
+                               captures=multistep.COUNTS["captures"] - before["captures"],
+                               replays=multistep.COUNTS["replays"] - before["replays"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+        logger.removeHandler(handler)
+    check(runs[8]["captures"] == 4 and runs[8]["replays"] == 8 and runs[1]["replays"] == 0,
+          f"beat --steps-per-call 8 ran {runs[8]['captures']} captures, {runs[8]['replays']} replays")
+    check(len(folds.get(8, [])) == 4 and folds[8] == folds[1] and runs[8]["results"] == runs[1]["results"],
+          f"beat --steps-per-call 8 vs 1: fold F1s {folds}, results {runs[8]['results']} vs {runs[1]['results']}")
+    emit("multistep", part="beat", folds=4, max_epochs=2, batch=1, fold_f1_k8=folds[8], fold_f1_k1=folds[1],
+         seconds_k8=runs[8]["seconds"], seconds_k1=runs[1]["seconds"], captures_k8=runs[8]["captures"],
+         replays_k8=runs[8]["replays"], results_equal=True, F1=runs[8]["results"]["F1"], card=smi)
+    shutil.rmtree(root)
+
+
+def phase_multistep(ds, smi: str) -> None:
+    """Multi-step dispatch (steps_per_call): K optimizer steps as one CUDA
+    graph against K eager steps at the train and pretext cells' shapes, and
+    the beat CLI at K = 8 against K = 1. cuDNN runs deterministic here."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for shape in MULTISTEP_SHAPES:
+            _multistep_shape(*shape, smi)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _multistep_beat(ds, smi)
+    emit("multistep", part="done", seconds=time.perf_counter() - t0, card=smi)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -2179,6 +2455,7 @@ def main() -> None:
     phase_separator(stats, args.trace)
     phase_suite(stats)
     phase_mesh(stats, bank, smi)
+    phase_multistep(ds, smi)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         s = stats.pop(name)

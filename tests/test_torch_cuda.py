@@ -15,7 +15,9 @@ step at k = 2 card vs CPU at the same tolerances (its gradients with the
 CPU's max-pool and ReLU decisions replayed on the card); the staged step
 on a one-rank NCCL mesh against the single-device step within 1e-7; the batched DBN
 Viterbi kernel equal to its plain version bit for bit, and the device
-decode's beats equal to the float64 DBN's on clean golden activations.
+decode's beats equal to the float64 DBN's on clean golden activations; a
+K-step call as one CUDA graph equal to K eager steps bit for bit (cuDNN
+deterministic), also after a resume.
 """
 
 import contextlib
@@ -302,3 +304,141 @@ def test_decode_beats_device_matches_decode_beats(cuda):
     for act, beats in zip(acts, decode_beats_batch_device(batch, lengths, device="cuda")):
         np.testing.assert_array_equal(beats, decode_beats(act, use_native=False))
     assert decode_beats_batch_device(batch, [lengths[0], 0, 5, 7], device="cuda")[1].size == 0
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _bucket(cuda, n=6, streams=2, frames=128, seed=7):
+    rng = np.random.default_rng(seed)
+    vqt = torch.tensor((rng.standard_normal((n, streams, 96, frames)) * 4.0 - 6.0).astype(np.float32), device=cuda)
+    pulse = torch.tensor((rng.random((n, frames)) < 0.1).astype(np.float32), device=cuda)
+    return vqt, pulse, torch.ones(n, frames, device=cuda)
+
+
+def _eager_steps(state, bucket, idx, generators, status):
+    """train_step on rows idx[k] of the bucket with generators[k], in order."""
+    from zeronotesamba_torch.train.supervised import train_step
+
+    losses, outs = [], []
+    for rows, gen in zip(torch.as_tensor(idx, device=bucket[0].device), generators):
+        state, loss, out = train_step(state, *(t.index_select(0, rows) for t in bucket), gen, status)
+        losses.append(loss)
+        outs.append(out)
+    return torch.stack(losses), torch.stack(outs)
+
+
+def test_multistep_graph_equals_eager_steps(cuda):
+    """K = 3 supervised steps of the twin (batch 2 x 128, dropout on) as one
+    CUDA graph against three eager train_step calls from the same state,
+    cuDNN deterministic: losses, outputs and parameters bit for bit at the
+    capturing call and at a replay; the caller's generators end as the eager
+    steps leave theirs; the replay captures nothing."""
+    from zeronotesamba_torch.train import multistep
+    from zeronotesamba_torch.train.supervised import (
+        SupervisedConfig, dropout_generator, init_state, make_multistep_train_step,
+    )
+
+    bucket = _bucket(cuda)
+    cfg = SupervisedConfig(status="pretrained", lr=1e-3)
+    step = make_multistep_train_step(cfg.status)
+    idx = [np.array([[0, 3], [5, 1], [2, 4]]), np.array([[1, 2], [0, 5], [3, 3]])]
+    with _deterministic_cudnn():
+        graph, eager = init_state(cfg, None, 3, device=cuda), init_state(cfg, None, 3, device=cuda)
+        for call, rows in enumerate(idx):
+            before = dict(multistep.COUNTS)
+            gens = [dropout_generator(2, 3 * call + k, "cuda") for k in range(3)]
+            graph, losses, outs = step(graph, *bucket, rows, gens)
+            assert multistep.COUNTS == {"captures": before["captures"] + (call == 0),
+                                        "replays": before["replays"] + 1}
+            e_gens = [dropout_generator(2, 3 * call + k, "cuda") for k in range(3)]
+            e_losses, e_outs = _eager_steps(eager, bucket, rows, e_gens, cfg.status)
+            assert torch.equal(losses, e_losses) and torch.equal(outs, e_outs)
+            assert all(torch.equal(g.get_state(), e.get_state()) for g, e in zip(gens, e_gens))
+            assert all(torch.equal(a, b) for a, b in zip(graph.model.parameters(), eager.model.parameters()))
+        assert graph.step == eager.step == 6 and len(graph.graphs) == 1
+
+
+def test_multistep_pretext_graph_equals_eager_steps(cuda):
+    """S = 2 calls of the k = 2 track step (batch 4 x 64 a track, dropout
+    on) as one CUDA graph against two eager steps, cuDNN deterministic:
+    losses, cosines and parameters bit for bit."""
+    from zeronotesamba_torch.train.pretext import PretextConfig, init_pretext_state, make_staged_train_step
+    from zeronotesamba_torch.train.supervised import dropout_generator
+
+    rng = np.random.default_rng(6)
+    bank = torch.tensor((rng.standard_normal((4, 2, 96, 128)) * 4.0 - 6.0).astype(np.float32), device=cuda)
+    tracks = np.array([[0, 2], [3, 1]])
+    starts = rng.integers(0, 65, size=(2, 2, 4))
+    cfg = PretextConfig(batch_size=4, crop_frames=64, lr=1e-4)
+    with _deterministic_cudnn():
+        graph, eager = init_pretext_state(cfg, 3, device=cuda), init_pretext_state(cfg, 3, device=cuda)
+        for call in range(2):
+            graph, *got = make_staged_train_step(cfg, steps_per_call=2)(
+                graph, bank, tracks, starts, [dropout_generator(4, 2 * call + s, "cuda") for s in range(2)])
+            for s in range(2):
+                eager, *want = make_staged_train_step(cfg)(eager, bank, tracks[s], starts[s],
+                                                           dropout_generator(4, 2 * call + s, "cuda"))
+                assert [g[s].item() for g in got] == [w.item() for w in want]
+            assert all(torch.equal(a, b) for a, b in zip(graph.model.parameters(), eager.model.parameters()))
+
+
+def test_multistep_recaptures_after_load_state_dict(cuda, tmp_path):
+    """A resume replaces the optimizer's state tensors: the next K-step call
+    captures anew (it never replays the stale graph) and matches eager steps
+    from the same checkpoint, bit for bit."""
+    from zeronotesamba_torch.train import multistep
+    from zeronotesamba_torch.train.checkpoint import CheckpointManager
+    from zeronotesamba_torch.train.supervised import SupervisedConfig, init_state, make_multistep_train_step
+
+    bucket = _bucket(cuda, streams=1)
+    cfg = SupervisedConfig(status="vanilla", lr=1e-3)
+    step = make_multistep_train_step(cfg.status)
+    idx = np.array([[0, 3], [5, 1]])
+    mgr = CheckpointManager(str(tmp_path))
+    with _deterministic_cudnn():
+        state = init_state(cfg, None, 3, device=cuda)
+        state, *_ = step(state, *bucket, idx, [None, None])
+        mgr.save(0, state)
+        state, *_ = step(state, *bucket, idx, [None, None])  # moves on from the checkpoint
+        captures = multistep.COUNTS["captures"]
+        state = mgr.restore(state)
+        assert state.optimizer.param_groups[0]["capturable"]
+        state, losses, _ = step(state, *bucket, idx, [None, None])
+        assert multistep.COUNTS["captures"] == captures + 1
+        eager = mgr.restore(init_state(cfg, None, 4, device=cuda))
+        e_losses, _ = _eager_steps(eager, bucket, idx, (None, None), cfg.status)
+        assert torch.equal(losses, e_losses)
+        assert all(torch.equal(a, b) for a, b in zip(state.model.parameters(), eager.model.parameters()))
+
+
+def test_a_capture_that_syncs_with_the_host_raises(cuda, monkeypatch):
+    """A loss that reads a value to the host cannot be captured: the K-step
+    call raises, and no eager step runs in its place (the step count and the
+    parameters stay where they were). Last in this file: a failed capture
+    may leave the process's allocator in its capture state."""
+    from zeronotesamba_torch.train import supervised
+    from zeronotesamba_torch.train.supervised import SupervisedConfig, init_state, make_multistep_train_step
+
+    bce = supervised.masked_bce_logits
+
+    def syncing(logits, *args):
+        loss = bce(logits, *args)
+        float(loss)  # a host read
+        return loss
+
+    monkeypatch.setattr(supervised, "masked_bce_logits", syncing)
+    bucket = _bucket(cuda, streams=1)
+    state = init_state(SupervisedConfig(status="vanilla", lr=1e-3), None, 3, device=cuda)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    with pytest.raises(RuntimeError):
+        make_multistep_train_step("vanilla")(state, *bucket, np.array([[0, 1], [2, 3]]), [None, None])
+    assert state.step == 0 and not state.graphs
+    assert all(torch.equal(a, b) for a, b in zip(before, state.model.parameters()))

@@ -43,6 +43,20 @@ def test_factorizations_are_the_jax_default_sweep():
         assert _factorizations(n) == g._factorizations(n, full=False)
 
 
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 16])
+def test_factorizations_are_the_jax_sweeps(n, full):
+    """Both JAX sweeps, the default and ZNS_DRYRUN_FULL's; with the full
+    sweep the pretext stage draws three batches, the JAX dry run's count,
+    before the bank."""
+    import __graft_entry__ as g
+
+    from zeronotesamba_torch.parallel.dryrun import _inputs
+
+    assert _factorizations(n, full) == g._factorizations(n, full)
+    assert max(k for *_, k in _factorizations(n, full)) == len(_inputs(2, full)["batches"])
+
+
 def test_dryrun_multichip_4_on_cpu_gloo_ranks():
     laps = dryrun_multichip(4, device="cpu")
     assert [lap["stage"] for lap in laps] == ["references", "pretext", "pretext", "track", "supervised", "tp"]

@@ -79,13 +79,17 @@ def test_watchdog_restart_uses_fresh_stream():
 
 
 def test_steps_per_call_and_rng_impl_have_no_effect():
-    """The JAX driver's dispatch options: every update is one step call, so
-    S = 4 runs the S = 1 schedule exactly, dropout included."""
-    runs = [_run(_bank(), num_epochs=2, tracks_per_step=2, **kw)
-            for kw in ({}, dict(steps_per_call=4, scan_unroll=True, rng_impl="threefry", freq_s2d=(1,)))]
-    (b0, h0), (b1, h1) = runs
-    assert h0 == h1
-    assert all(torch.equal(b0[k], b1[k]) for k in b0)
+    """The JAX driver's dispatch options. ``rng_impl``, ``scan_unroll`` and
+    ``freq_s2d`` change nothing; S = 4 on an epoch of 4 updates (4 train
+    tracks) needs no pad, so its one 4-step call repeats the S = 1 run
+    exactly, dropout included."""
+    bank = _bank(5)
+    runs = [train_pretext(bank[:4], bank[4:], PretextRunConfig(**{**SMALL, "num_epochs": 2, **kw}), device="cpu")
+            for kw in ({}, dict(rng_impl="threefry", scan_unroll=True, freq_s2d=(1,)), dict(steps_per_call=4))]
+    (b0, h0) = runs[0]
+    for b1, h1 in runs[1:]:
+        assert h0 == h1
+        assert all(torch.equal(b0[k], b1[k]) for k in b0)
 
 
 def test_seeded_dropout_repeats_exactly():

@@ -227,8 +227,9 @@ def test_frozen_trunk_is_bit_identical_after_an_epoch(tiny):
 
 
 def test_steps_per_call_equals_sequential_steps(tiny):
-    """steps_per_call is the JAX engine's dispatch option; here every step is
-    one train_step call, so K=2 runs the same two sequential steps."""
+    """steps_per_call is the JAX engine's dispatch option: K = 2 trains the
+    two full batches in one call (the plain two-step loop on the CPU), the
+    same two sequential steps."""
     runs = {}
     for k in (1, 2):
         cfg = SupervisedConfig(status="vanilla", lr=2e-4, batch_size=1, bucket_frames=TINY_FRAMES, steps_per_call=k)

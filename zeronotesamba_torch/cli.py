@@ -62,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="conv compute dtype (params and loss stay float32)")
     t.add_argument("--steps-per-call", type=int, default=1,
-                   help="accepted for the JAX CLI's flags; no effect here (SupervisedConfig)")
+                   help="K > 1: train each run of K full batches of one bucket in one call, "
+                        "one CUDA graph on a card (the plain K-step loop on the CPU); same numerics")
     t.add_argument("--freq-s2d", action="store_true", help="accepted for the JAX CLI's flags; no effect here")
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--device", default="cuda", help=DEVICE_HELP)
@@ -117,7 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--proxy-data", default=None, help="npz dataset cache for --selection proxy_f1")
     pt.add_argument("--freq-s2d", action="store_true", help="accepted for the JAX CLI's flags; no effect here")
     pt.add_argument("--steps-per-call", type=int, default=1,
-                    help="accepted for the JAX CLI's flags; no effect here (make_staged_train_step)")
+                    help="S > 1: pad each epoch to a multiple of S updates and run them S to a call, "
+                         "one CUDA graph on a card (the plain S-step loop on the CPU); forced to 1 "
+                         "with --data-parallel")
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--device", default="cuda", help=DEVICE_HELP)
 

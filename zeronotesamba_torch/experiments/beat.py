@@ -59,7 +59,7 @@ class BeatExperimentConfig:
     # librosa-DP columns side by side)
     return_params: bool = False  # keep each fold's best params on the result
     compute_dtype: str = "float32"  # float32 | bfloat16 convs
-    steps_per_call: int = 1  # accepted, no effect (SupervisedConfig)
+    steps_per_call: int = 1  # K > 1: K train steps a call (SupervisedConfig)
     freq_s2d: tuple = ()  # accepted, no effect (SupervisedConfig)
 
 

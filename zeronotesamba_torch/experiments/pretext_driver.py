@@ -7,11 +7,14 @@ yields one batch of ``batch_size`` random crops; validation shifts are
 FIXED at epoch 0 (pretext.py:284-292); the best-validation params are
 checkpointed in the reference key names (``models/shift_pret_cnn_16.pth``).
 
-The numpy draws (the shuffle, the k-track pad, the shifts) come in the JAX
-driver's order from the same seeds, so both drivers train on the same crops
-in the same order. Dropout masks cannot follow JAX's streams: each update
-draws them from a device generator seeded from ``seed + 1 + 1000*attempt``
-and the global update index (train/supervised.dropout_generator).
+The numpy draws (the shuffle, the k-track pad, the S-chunk pad, the shifts)
+come in the JAX driver's order from the same seeds, so both drivers train on
+the same crops in the same order. With ``steps_per_call`` = S > 1 an
+epoch's updates are padded to a multiple of S and run S to a call (one
+CUDA graph on a card), their losses and cosines read once a call. Dropout
+masks cannot follow JAX's streams: each update draws them from a device
+generator seeded from ``seed + 1 + 1000*attempt`` and the global update
+index (train/supervised.dropout_generator).
 
 With a ``mesh`` (parallel/mesh.py) every rank runs ``train_pretext``
 track-parallel, as the JAX driver does under a mesh: the bank is padded
@@ -52,9 +55,13 @@ log = get_logger("experiments.pretext")
 
 @dataclasses.dataclass
 class PretextRunConfig:
-    """The JAX driver's fields and defaults. ``steps_per_call``,
-    ``scan_unroll``, ``freq_s2d`` and ``rng_impl`` are accepted and have no
-    effect (train/pretext.make_staged_train_step, PretextConfig)."""
+    """The JAX driver's fields and defaults. ``steps_per_call`` = S > 1 pads
+    each epoch's updates to a multiple of S and runs them S at a time
+    (train/pretext.make_staged_train_step; single-device only: forced to 1
+    under a mesh, as in JAX). Accepted with no effect: ``rng_impl`` picks
+    the TPU's random-bit generator, ``scan_unroll`` the XLA lowering of the
+    S-step scan, ``freq_s2d`` a TPU matrix-unit schedule whose outputs equal
+    the plain conv's."""
 
     task: str = "zerons"
     num_epochs: int = 250
@@ -217,7 +224,8 @@ def train_pretext(
         freq_s2d=tuple(cfg.freq_s2d),
     )
     state = init_pretext_state(pcfg, cfg.seed, device=dev)
-    step = make_staged_train_step(pcfg, mesh=mesh)
+    s_call = max(1, int(cfg.steps_per_call)) if mesh is None else 1
+    step = make_staged_train_step(pcfg, mesh=mesh, steps_per_call=s_call)
     eval_step = make_eval_step(pcfg)
     rng = np.random.default_rng(cfg.seed)
     # Both banks go to the device once; a training batch is (track, shifts)
@@ -301,10 +309,26 @@ def train_pretext(
             tr_losses, tr_pos, tr_neg = [], [], []
             with trace(cfg.trace_dir if epoch == a_start and attempt == 0 else None):
                 updates = epoch_updates()
-                for u, i in enumerate(updates):
-                    gen = dropout_generator(dropout_seed, epoch * len(updates) + u, dev)
-                    state, loss, pc, nc = step(state, bank_dev, i, starts_for(i), gen)
-                    tr_losses.append(float(loss)); tr_pos.append(float(pc)); tr_neg.append(float(nc))
+                if s_call > 1:
+                    # The JAX driver's S-chunk schedule: pad the epoch to a
+                    # multiple of S with tracks drawn from the shuffle
+                    # stream, then each chunk's shifts, update by update.
+                    for _ in range((-len(updates)) % s_call):
+                        updates.append(rng.choice(len(train_bank), size=(k,)) if k > 1
+                                       else rng.integers(len(train_bank)))
+                    for c in range(0, len(updates), s_call):
+                        chunk = updates[c: c + s_call]
+                        gens = [dropout_generator(dropout_seed, epoch * len(updates) + c + j, dev)
+                                for j in range(s_call)]
+                        starts = np.stack([starts_for(i) for i in chunk])
+                        state, losses, pcs, ncs = step(state, bank_dev, np.asarray(chunk), starts, gens)
+                        chunk_loss, chunk_pos, chunk_neg = torch.stack([losses, pcs, ncs]).tolist()
+                        tr_losses.extend(chunk_loss); tr_pos.extend(chunk_pos); tr_neg.extend(chunk_neg)
+                else:
+                    for u, i in enumerate(updates):
+                        gen = dropout_generator(dropout_seed, epoch * len(updates) + u, dev)
+                        state, loss, pc, nc = step(state, bank_dev, i, starts_for(i), gen)
+                        tr_losses.append(float(loss)); tr_pos.append(float(pc)); tr_neg.append(float(nc))
             va_losses, va_pos, va_neg = [], [], []
             for vb in val_batches:
                 loss, pc, nc = eval_step(state, vb)

@@ -8,7 +8,9 @@ against the single-device step with the JAX dry run's limits:
 
 1. the pretext contrastive step: a two-step loss trajectory on the pure
    data-parallel mesh and one step on a mixed mesh (``_factorizations``),
-   each loss within 1e-4 relative of the single-device trajectory;
+   each loss within 1e-4 relative of the single-device trajectory; with
+   ``ZNS_DRYRUN_FULL`` set (read as the JAX dry run reads it), three steps
+   on each of three meshes;
 2. the track-parallel staged pretext step on an (n, 1, 1) mesh, each rank
    holding its shard of the bank, against the single-device step over the
    same n tracks, 1e-4 relative;
@@ -25,9 +27,8 @@ prints a lap line to stderr after each stage, as the JAX dry run does.
 On the CPU the ranks are gloo processes. On the card they are NCCL ranks,
 one a card, or, with more ranks than cards, gloo ranks sharing ``cuda:0``
 (NCCL refuses two ranks on one device). The JAX dry run's 16-device
-confirmation stage and its ``ZNS_DRYRUN_FULL`` sweep are not ported: the
-former runs only where 16 devices exist, and this dry run takes n from its
-caller.
+confirmation stage is not ported: it runs only where 16 devices exist, and
+this dry run takes n from its caller.
 """
 
 from __future__ import annotations
@@ -78,16 +79,20 @@ def entry(device: str | torch.device = "cuda"):
     return fn, (dict(model.state_dict()), anc, pos)
 
 
-def _factorizations(n: int):
-    """(data, time, model, n_steps) mesh stages of the pretext sweep: pure
-    data parallelism with a two-step trajectory, then one mixed shape that
-    exercises the time and model axes together at one step (the JAX dry
-    run's default sweep)."""
-    shapes = [(n, 1, 1, 2)]
+def _factorizations(n: int, full: bool = False):
+    """(data, time, model, n_steps) mesh stages of the pretext sweep, the
+    JAX dry run's: pure data parallelism with a two-step trajectory, then
+    one mixed shape that exercises the time and model axes together at one
+    step; ``full`` (``ZNS_DRYRUN_FULL``) adds an (n/2, 2, 1) shape and runs
+    every shape three steps."""
+    steps_mixed = 3 if full else 1
+    shapes = [(n, 1, 1, 3 if full else 2)]
+    if n % 2 == 0 and full:
+        shapes += [(n // 2, 2, 1, 3)]
     if n % 4 == 0:
-        shapes += [(n // 4, 2, 2, 1)]
+        shapes += [(n // 4, 2, 2, steps_mixed)]
     elif n % 2 == 0:
-        shapes += [(n // 2, 1, 2, 1)]
+        shapes += [(n // 2, 1, 2, steps_mixed)]
     return shapes
 
 
@@ -100,10 +105,11 @@ def _close(got: float, ref: float, what: str) -> None:
     _check(abs(got - ref) <= LOSS_RTOL * max(1.0, abs(ref)), f"{what} diverged: {got} vs {ref}")
 
 
-def _inputs(n: int) -> dict:
-    """Every stage's host data, drawn in the JAX dry run's order."""
+def _inputs(n: int, full: bool = False) -> dict:
+    """Every stage's host data, drawn in the JAX dry run's order: the
+    pretext batches (three with ``full``, else two) first."""
     rng = np.random.default_rng(0)
-    inp = dict(batches=[rng.standard_normal((8, 2, 96, CROP)).astype(np.float32) for _ in range(2)])
+    inp = dict(batches=[rng.standard_normal((8, 2, 96, CROP)).astype(np.float32) for _ in range(3 if full else 2)])
     bank = rng.standard_normal((2 * n, 2, 96, 2 * CROP)).astype(np.float32)
     local = rng.integers(0, 2, size=n)
     inp.update(bank=bank, local=local, global_idx=np.arange(n) * 2 + local,
@@ -158,7 +164,7 @@ def _ref_tp(inp, dev):
 REFERENCES = (("pretext", _ref_pretext), ("track", _ref_track), ("supervised", _ref_supervised), ("tp", _ref_tp))
 
 
-def _rank(mesh: Mesh, t_start: float) -> list:
+def _rank(mesh: Mesh, t_start: float, full: bool) -> list:
     """Every stage on one rank of the world; the laps, on rank 0."""
     n, dev = dist.get_world_size(), mesh.device
     disable_tf32()  # every stage is float32, its reference too
@@ -171,7 +177,7 @@ def _rank(mesh: Mesh, t_start: float) -> list:
         if mesh.flat_rank == 0:
             print(f"[dryrun {laps[-1]['seconds']:6.1f}s] {msg}", file=sys.stderr, flush=True)
 
-    inp = _inputs(n)
+    inp = _inputs(n, full)
     mine = {name: fn(inp, dev) for j, (name, fn) in enumerate(REFERENCES) if j % n == mesh.flat_rank}
     gathered = [None] * n
     dist.all_gather_object(gathered, mine)
@@ -179,7 +185,7 @@ def _rank(mesh: Mesh, t_start: float) -> list:
     lap("references", f"single-device references; pretext trajectory {[f'{v:.5f}' for v in ref['pretext']]}")
 
     # 1. The pretext step on the mesh sweep, at dropout 0.
-    for d, t, m, k_steps in _factorizations(n):
+    for d, t, m, k_steps in _factorizations(n, full):
         label = f"mesh {d}x{t}x{m}"
         pmesh = make_mesh(d, t, m, device=dev)
         st, step = init_pretext_state(_pretext_cfg(8), 0, device=dev), make_train_step(_pretext_cfg(8), pmesh)
@@ -220,8 +226,9 @@ def _rank(mesh: Mesh, t_start: float) -> list:
 def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> list:
     """Run the dry run on ``n_devices`` spawned ranks (an even number: the
     supervised stage splits the world in two over the time axis); any failed
-    check raises. Returns rank 0's laps: each stage's name, the seconds since
-    the start at which it ended and its message."""
+    check raises. ``ZNS_DRYRUN_FULL`` set to anything but the empty string
+    runs the full pretext sweep. Returns rank 0's laps: each stage's name,
+    the seconds since the start at which it ended and its message."""
     if n_devices < 2 or n_devices % 2:
         raise ValueError(f"the dry run needs an even number of ranks, not {n_devices}")
     dev = resolve_device(device)
@@ -231,4 +238,5 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> lis
         backend, rank_device = "nccl", None
     else:
         backend, rank_device = "gloo", "cuda:0"
-    return run_ranks(_rank, n_devices, backend, time.time(), device=rank_device)[0]
+    full = bool(os.environ.get("ZNS_DRYRUN_FULL"))
+    return run_ranks(_rank, n_devices, backend, time.time(), full, device=rank_device)[0]

@@ -59,12 +59,18 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Load checkpoint ``step`` (default: the latest) into ``state``'s
-        model and optimizer, on their device, and return it."""
+        model and optimizer, on their device, and return it. The optimizer's
+        state tensors are new ones, so a multi-step call on ``state``
+        captures its CUDA graph anew (train/multistep.py)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self._dir}")
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
         state.model.load_state_dict(payload["model"])
+        # Adam is capturable on a card and not on the CPU (train/state.py):
+        # the live optimizer's choice holds whichever device saved the file.
+        for saved, live in zip(payload["optimizer"]["param_groups"], state.optimizer.param_groups):
+            saved["capturable"] = live.get("capturable", False)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = payload["step"]
         return state

@@ -8,7 +8,9 @@ the same audio. The embedding NT-Xent sees is each DSCNN's sigmoid pulse,
 
 ``make_staged_train_step`` is the engine's hot path: the (N, 2, 96, T) bank
 lives on the device and each step receives only ``(track_idx, starts)``;
-the crops come from one index gather on the device.
+the crops come from one index gather on the device. With ``steps_per_call``
+= S it takes S steps in one call: one CUDA graph replay on a card
+(train/multistep.py).
 
 With a ``mesh`` (parallel/mesh.py) both train steps are data parallel over
 its ranks, one process each, as the JAX engine's are over the mesh's
@@ -44,6 +46,7 @@ from zeronotesamba_torch.losses.ntxent import ntxent, ntxent_global
 from zeronotesamba_torch.models.encoder import DSCNN, TwinPretext
 from zeronotesamba_torch.models.weights import load_weights
 from zeronotesamba_torch.parallel.mesh import Mesh, all_reduce_grads, pmean, rank_generator, shard_batch
+from zeronotesamba_torch.train.multistep import run_steps
 from zeronotesamba_torch.train.state import TrainState, pretext_optimizer
 
 
@@ -230,12 +233,15 @@ def make_staged_train_step(cfg: PretextConfig, mesh: Optional[Mesh] = None, step
     (gradient accumulation across tracks; each track's negatives are only
     its own shifts). k = 1 is the plain step.
 
-    ``steps_per_call`` and ``scan_unroll`` are accepted and have no effect:
-    the JAX engine scans S optimizer steps in one dispatched program to hide a
-    fixed per-call relay cost; here every update is one step call. The JAX
-    driver then pads each epoch's updates to a multiple of S by drawing extra
-    tracks (experiments/pretext_driver.py:303-306), so at S > 1 its shuffle
-    stream differs from the port's, which runs the S = 1 schedule.
+    ``steps_per_call`` = S > 1 gives the multi-step call of the JAX engine
+    (a scan of S steps): ``step(state, bank, track_idx (S,) | (S, k), starts
+    (S, B) | (S, k, B), generators)`` -> (state, losses (S,), pos cosines
+    (S,), neg cosines (S,)), step s on ``track_idx[s]``, ``starts[s]`` with
+    dropout from ``generators[s]`` (all None: off), the same as S single
+    steps. On a card the S steps are one CUDA graph (train/multistep.py); on
+    the CPU they run one after another. It is single-device only, as in JAX:
+    with a mesh it raises NotImplementedError. ``scan_unroll`` is accepted
+    with no effect: it picks the XLA lowering of JAX's scan.
 
     With a ``mesh`` the step is track-parallel, as the JAX mesh step: each
     rank passes its own (N/d, 2, 96, T) shard of the bank, and every rank
@@ -246,7 +252,9 @@ def make_staged_train_step(cfg: PretextConfig, mesh: Optional[Mesh] = None, step
     over the same tracks (at dropout 0: each rank draws its own masks,
     ``rank_generator``).
     """
-    del steps_per_call, scan_unroll
+    del scan_unroll
+    if steps_per_call > 1 and mesh is not None:
+        raise NotImplementedError("steps_per_call > 1 is single-device only, as in the JAX engine")
 
     def loss_fn(model, bank, track_idx, starts, generator):
         ti = torch.as_tensor(track_idx, dtype=torch.int64, device=bank.device).reshape(-1)
@@ -266,4 +274,18 @@ def make_staged_train_step(cfg: PretextConfig, mesh: Optional[Mesh] = None, step
         gen = generator if mesh is None else rank_generator(generator, mesh.rank)
         return _update(state, lambda m: loss_fn(m, bank, track_idx, starts, gen), mesh)
 
-    return step
+    if steps_per_call <= 1:
+        return step
+
+    def multi_step(state: TrainState, bank: torch.Tensor, track_idx, starts, generators):
+        ti = torch.as_tensor(track_idx, dtype=torch.int64)
+        st = torch.as_tensor(starts, dtype=torch.int64)
+
+        def one(s: int, inputs, generator):
+            return step(state, bank, inputs[0][s], inputs[1][s], generator)[1:]
+
+        key = ("pretext", dataclasses.astuple(cfg), id(bank), tuple(ti.shape), tuple(st.shape))
+        losses, pcs, ncs = run_steps(state, key, one, (ti, st), generators, bank.device, keep=(bank,))
+        return state, losses, pcs, ncs
+
+    return multi_step

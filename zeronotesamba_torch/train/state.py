@@ -10,8 +10,11 @@ loader.load_models policy (loader.py:8-69):
 - status 'clmr' + frozen:           Adam(lr), conv trunk frozen
 
 ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8 has optax.adam's
-update rule. A frozen trunk is left out of the optimizer: its one param
-group holds only the heads, so the trunk tensors never change. That stands
+update rule. On a card it is ``capturable``: its step count and bias
+correction stay on the device, so a CUDA graph can hold the update
+(train/multistep.py), and the eager step runs the same update as the
+graph. A frozen trunk is left out of the optimizer: its one param group
+holds only the heads, so the trunk tensors never change. That stands
 for the JAX package's optax.multi_transform + set_to_zero over every leaf
 under an ``encoder``, and for the reference's requires_grad=False loop.
 """
@@ -31,11 +34,20 @@ TRUNK = "pretrained"
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer and the count of optimizer steps taken."""
+    """The model, its optimizer and the count of optimizer steps taken; on a
+    card also the CUDA graphs of multi-step calls captured on this state
+    (train/multistep.py)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+
+def _adam(params, lr: float) -> torch.optim.Adam:
+    params = list(params)
+    capturable = any(p.is_cuda for p in params)
+    return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, capturable=capturable)
 
 
 def downstream_learning_rate(status: str, pre: str, lr: float) -> float:
@@ -52,7 +64,7 @@ def make_optimizer(model: nn.Module, status: str, pre: str, lr: float) -> torch.
     params = list(model.parameters())
     if pre == "frozen" and status in ("pretrained", "clmr"):
         params = [p for name, p in model.named_parameters() if TRUNK not in name.split(".")]
-    return torch.optim.Adam(params, lr=downstream_learning_rate(status, pre, lr), betas=ADAM_BETAS, eps=ADAM_EPS)
+    return _adam(params, downstream_learning_rate(status, pre, lr))
 
 
 def pretext_learning_rate(task: str = "zerons", lr: float | None = None) -> float:
@@ -71,4 +83,4 @@ def pretext_learning_rate(task: str = "zerons", lr: float | None = None) -> floa
 def pretext_optimizer(model: nn.Module, task: str = "zerons", lr: float | None = None) -> torch.optim.Adam:
     """Reference pretext optimizer (pretext.py:202,208): Adam over every
     parameter at ``pretext_learning_rate(task, lr)``."""
-    return torch.optim.Adam(model.parameters(), lr=pretext_learning_rate(task, lr), betas=ADAM_BETAS, eps=ADAM_EPS)
+    return _adam(model.parameters(), pretext_learning_rate(task, lr))

@@ -7,7 +7,9 @@ per-song B=1 loop (epochs.py:8-187):
   (N, S, 96, T) tensors; every epoch then batches by index gathers on the
   device, so shuffling moves a few bytes instead of spectrograms;
 - one train step per batch: masked logits-space BCE (losses/bce.py) and an
-  Adam update (train/state.py);
+  Adam update (train/state.py); with ``steps_per_call`` = K, each run of K
+  full batches of one bucket is one call (``make_multistep_train_step``),
+  one CUDA graph replay on a card (train/multistep.py);
 - beat decoding + metric scoring (the reference runs madmom's DBN inside the
   train loop, epochs.py:83-91) happen on the host from the batched outputs.
 
@@ -46,6 +48,7 @@ from zeronotesamba_torch.models.baseline import BockTCN
 from zeronotesamba_torch.models.encoder import DSCNN, FusedDownstream
 from zeronotesamba_torch.models.weights import load_weights
 from zeronotesamba_torch.parallel.mesh import Mesh, all_reduce_grads, rank_generator
+from zeronotesamba_torch.train.multistep import run_steps
 from zeronotesamba_torch.train.state import TrainState, make_optimizer
 
 FPS = 62.5
@@ -55,13 +58,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass
 class SupervisedConfig:
-    """The JAX engine's fields. ``rng_impl`` (which TPU random-bit generator
-    draws dropout), ``steps_per_call`` (how many optimizer steps the JAX
-    engine fuses into one dispatched program, to hide a fixed per-call relay
-    cost; its numerics are the sequential steps'), ``scan_unroll`` (how XLA
-    lowers that multi-step scan) and ``freq_s2d`` (a TPU matrix-unit schedule
-    for some convs, whose outputs equal the plain conv's) are accepted and
-    have no effect here: every train step is one ``train_step`` call."""
+    """The JAX engine's fields. ``steps_per_call`` = K > 1 trains each run of
+    K full batches of one bucket in one call (``make_multistep_train_step``:
+    one CUDA graph on a card, the plain K-step loop on the CPU), with the
+    per-step path's numerics. Accepted with no effect: ``rng_impl`` picks the
+    TPU's random-bit generator, ``scan_unroll`` the XLA lowering of the K-step
+    scan, and ``freq_s2d`` a TPU matrix-unit schedule whose outputs equal the
+    plain conv's."""
 
     status: str = "vanilla"  # vanilla | pretrained | clmr | bock
     pre: str = "finetune"  # finetune | frozen
@@ -244,6 +247,36 @@ def train_step(state: TrainState, vqt, pulse, mask, generator: Optional[torch.Ge
     return state, loss.detach(), out.detach()
 
 
+def make_multistep_train_step(status: str):
+    """K supervised optimizer steps in one call, the counterpart of the JAX
+    engine's ``make_multistep_train_step`` (a scan of K steps):
+    ``step(state, bucket_vqt, bucket_pulse, bucket_mask, idx, generators,
+    pos_weight=1.0)`` -> (state, losses (K,), outs (K, B, T)). Step k trains
+    on rows ``idx[k]`` (idx (K, B), on the host or the device) of the staged
+    bucket arrays with dropout from ``generators[k]`` (all None: off), so the
+    call is K ``train_step`` calls on those rows with those generators. On a
+    card the K steps are one CUDA graph, captured at the first call on a
+    state and replayed after (train/multistep.py); on the CPU they run one
+    after another."""
+
+    def step(state: TrainState, bucket_vqt, bucket_pulse, bucket_mask, idx, generators, pos_weight=1.0):
+        idx = torch.as_tensor(idx, dtype=torch.int64)
+
+        def one(k: int, inputs, generator):
+            rows = inputs[0][k]
+            _, loss, out = train_step(state, bucket_vqt.index_select(0, rows), bucket_pulse.index_select(0, rows),
+                                      bucket_mask.index_select(0, rows), generator, status, pos_weight)
+            return loss, out
+
+        key = ("supervised", status, float(pos_weight), id(bucket_vqt), id(bucket_pulse), id(bucket_mask),
+               tuple(idx.shape))
+        losses, outs = run_steps(state, key, one, (idx,), generators, bucket_vqt.device,
+                                 keep=(bucket_vqt, bucket_pulse, bucket_mask))
+        return state, losses, outs
+
+    return step
+
+
 def eval_step(state: TrainState, vqt, pulse, mask, status: str, pos_weight=1.0, mesh: Optional[Mesh] = None):
     with torch.no_grad():
         return _loss_and_out(state.model, vqt, pulse, mask, None, status, pos_weight, mesh)
@@ -259,12 +292,44 @@ def run_epoch(
     epoch: int = 0,
     score: bool = True,
 ) -> Tuple[TrainState, float, np.ndarray]:
-    """One pass over a batch plan. Returns (state, mean loss, metric vec (6,))."""
+    """One pass over a batch plan. Returns (state, mean loss, metric vec (6,)).
+
+    With ``cfg.steps_per_call`` = K > 1 a train pass groups exactly K
+    consecutive full-size batches of one bucket into one K-step call and
+    reads their losses and outputs once; ragged tails and bucket boundaries
+    take the single step, as in the JAX engine. Step k of a group at plan
+    index i draws dropout from offset ``epoch * 100003 + i + k``, the single
+    step's stream, so both paths compute the same steps."""
     losses: List[float] = []
     all_scores: List[Tuple[float, ...]] = []
-    for i, (t, rows) in enumerate(plan):
+    k_call = max(1, int(cfg.steps_per_call)) if train else 1
+
+    def score_batch(out_np: np.ndarray, rows: np.ndarray, bucket: Bucket) -> None:
+        for b, row in enumerate(rows):
+            est = decode_beats_fn(out_np[b, : bucket.n_frames[row]], cfg.eval_method, fps=FPS)
+            all_scores.append(evaluate_beats(bucket.beat_times[row], est))
+
+    i = 0
+    while i < len(plan):
+        t, rows = plan[i]
         bucket = staged.buckets[t]
         dev = bucket.vqt.device
+        if k_call > 1:
+            group = []
+            while (i + len(group) < len(plan) and len(group) < k_call and plan[i + len(group)][0] == t
+                   and len(plan[i + len(group)][1]) == cfg.batch_size):
+                group.append(plan[i + len(group)][1])
+            if len(group) == k_call:
+                gens = [dropout_generator(cfg.dropout_seed, epoch * 100003 + i + k, dev) for k in range(k_call)]
+                state, losses_k, outs = make_multistep_train_step(cfg.status)(
+                    state, bucket.vqt, bucket.pulse, bucket.mask, np.stack(group), gens, cfg.pos_weight)
+                losses.extend(losses_k.tolist())
+                if score:
+                    outs_np = outs.cpu().numpy()
+                    for k, rws in enumerate(group):
+                        score_batch(outs_np[k], rws, bucket)
+                i += k_call
+                continue
         idx = torch.as_tensor(rows, dtype=torch.int64, device=dev)
         vqt = bucket.vqt.index_select(0, idx)
         pulse = bucket.pulse.index_select(0, idx)
@@ -276,9 +341,7 @@ def run_epoch(
             loss, out = eval_step(state, vqt, pulse, mask, cfg.status, cfg.pos_weight)
         losses.append(float(loss))
         if score:
-            out_np = out.cpu().numpy()
-            for b, row in enumerate(rows):
-                est = decode_beats_fn(out_np[b, : bucket.n_frames[row]], cfg.eval_method, fps=FPS)
-                all_scores.append(evaluate_beats(bucket.beat_times[row], est))
+            score_batch(out.cpu().numpy(), rows, bucket)
+        i += 1
     metrics = np.mean(np.asarray(all_scores), axis=0) if all_scores else np.zeros(6)
     return state, float(np.mean(losses)) if losses else 0.0, metrics
