@@ -325,6 +325,14 @@ def phase_build() -> None:
                          flags=list(dbn_native.CXX_FLAGS)))
 
 
+def _counted(prefix: str, before: dict) -> dict:
+    """The counters under ``prefix`` (utils/profiling.totals) since the
+    snapshot ``before`` (``profiling.totals()``), keyed without the prefix."""
+    from zeronotesamba_torch.utils import profiling
+
+    return {k[len(prefix):]: n - before.get(k, 0) for k, n in profiling.totals().items() if k.startswith(prefix)}
+
+
 def _signal(batch: int, seconds: float, seed: int) -> torch.Tensor:
     y = np.random.default_rng(seed).standard_normal((batch, int(seconds * SR))).astype(np.float32)
     return torch.tensor(0.1 * y, device="cuda")
@@ -494,13 +502,11 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool, separation: str = "h
 def phase_main_path(stats: dict, trace: bool) -> None:
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
-    from zeronotesamba_torch.decode import dbn
     from zeronotesamba_torch.decode.ellis import beat_track_signal
     from zeronotesamba_torch.infer import BeatTracker
     from zeronotesamba_torch.metrics.beat import evaluate_beats
-    from zeronotesamba_torch.ops.cuda import dbn_kernel
-    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
     from zeronotesamba_torch.ops.hpss import hpss_host
+    from zeronotesamba_torch.utils import profiling
 
     sig, clicks = click_track(30.0, 120.0, seed=0)
     gpu = BeatTracker(seed=0, device="cuda")
@@ -508,15 +514,13 @@ def phase_main_path(stats: dict, trace: bool) -> None:
     for k, v in gpu.state_dict().items():
         check(torch.equal(v, cpu.state_dict()[k]), f"seeded weights differ at {k}")
 
-    for counts in (vk.LAUNCHES, dbn_kernel.LAUNCHES, dbn.BACKEND_CALLS):
-        for key in counts:
-            counts[key] = 0
+    before = profiling.totals()
     t0 = time.perf_counter()
     res_g = gpu.track_signal(sig, separation="hpss", decoder="dbn")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {**vk.LAUNCHES, **dbn_kernel.LAUNCHES}
-    backends = dict(dbn.BACKEND_CALLS)
+    launches = {**_counted("vqt_launch.", before), **_counted("dbn_launch.", before)}
+    backends = _counted("dbn.", before)
     # One log_xqt_fused call per track_signal: one cascade and one octave
     # launch; the DBN decodes one song on the host, in C++.
     check(launches == {"cascade": 1, "octave": 1, "viterbi": 0}, f"main path launches {launches}")
@@ -661,15 +665,14 @@ def _etl(stats: dict) -> tuple:
     per generate_xqt call (one per stream of a song), and two songs rebuilt
     on the CPU agree with the card's."""
     from zeronotesamba_torch.data.datasets import build_synthetic
-    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+    from zeronotesamba_torch.utils import profiling
 
-    for key in vk.LAUNCHES:
-        vk.LAUNCHES[key] = 0
+    before = profiling.totals()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ds = build_synthetic(n_songs=ETL_SONGS, duration_s=ETL_SONG_S, seed=0, device="cuda")
     etl_s = time.perf_counter() - t0
-    launches = dict(vk.LAUNCHES)
+    launches = _counted("vqt_launch.", before)
     n_calls = sum(r.vqt.shape[0] for r in ds)
     check(launches == {"cascade": n_calls, "octave": n_calls},
           f"ETL launches {launches}, expected {n_calls} of each (one per generate_xqt call)")
@@ -865,8 +868,8 @@ def _pretext_bank(stats: dict) -> tuple:
     from zeronotesamba_torch.data.stems import fold_stems, mine_pair
     from zeronotesamba_torch.data.synthetic import percussive_pair
     from zeronotesamba_torch.experiments.pretext_driver import build_bank_from_stem_root
-    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
     from zeronotesamba_torch.ops.vqt import generate_xqt, log_xqt
+    from zeronotesamba_torch.utils import profiling
 
     corpus, stem_root = os.path.join(OUT_DIR, "pretext_corpus"), os.path.join(OUT_DIR, "pretext_stems")
     for d in (corpus, stem_root):
@@ -890,14 +893,13 @@ def _pretext_bank(stats: dict) -> tuple:
     for name, build in (("stem", lambda: build_bank_from_stem_root(stem_root, 10**9, seed=0, device="cuda")),
                         ("clmr", lambda: gen_clmr_bank(corpus, 10**9, clip_frames=PRETEXT_CROP, seed=0,
                                                        device="cuda"))):
-        for key in vk.LAUNCHES:
-            vk.LAUNCHES[key] = 0
+        before = profiling.totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         bank = build()
         torch.cuda.synchronize()
         counts[name] = dict(items=len(bank), shape=list(bank.shape), seconds=time.perf_counter() - t0,
-                            launches=dict(vk.LAUNCHES))
+                            launches=_counted("vqt_launch.", before))
         counts[name]["seconds_per_item"] = counts[name]["seconds"] / len(bank)
         per_item = 2 if name == "stem" else 1  # generate_xqt calls an item
         check(counts[name]["launches"] == {"cascade": per_item * len(bank), "octave": per_item * len(bank)},
@@ -907,7 +909,7 @@ def _pretext_bank(stats: dict) -> tuple:
     check(stem_bank.shape == (PRETEXT_TRACKS, 2, 96, PRETEXT_FRAMES), f"stem bank shape {stem_bank.shape}")
     check(counts["clmr"]["shape"] == [PRETEXT_TRACKS + 1, 2, 96, PRETEXT_CROP], f"CLMR bank {counts['clmr']}")
     check(bool(np.isfinite(stem_bank).all()), "stem bank not finite")
-    for kname in vk.LAUNCHES:  # the log-VQT kernels
+    for kname in counts["stem"]["launches"]:  # the log-VQT kernels
         stats[kname]["pretext_launches_per_bank_item"] = counts["stem"]["launches"][kname] / len(stem_bank)
         stats[kname]["pretext_launches_per_clmr_item"] = counts["clmr"]["launches"][kname] / counts["clmr"]["items"]
 
@@ -1198,16 +1200,15 @@ def _viterbi_timed(stats: dict, shape: str, acts: np.ndarray, lengths: list) -> 
 def _device_decode(fn, n_songs: int) -> tuple:
     """One device decode with the Viterbi launches counted: (result, its
     host seconds a song, split into forward and backtrack)."""
-    from zeronotesamba_torch.ops.cuda import dbn_kernel
+    from zeronotesamba_torch.utils import profiling
 
-    for key in dbn_kernel.LAUNCHES:
-        dbn_kernel.LAUNCHES[key] = 0
+    before = profiling.totals()
     stage = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn(stage)
     secs = time.perf_counter() - t0
-    launches = dict(dbn_kernel.LAUNCHES)
+    launches = _counted("dbn_launch.", before)
     check(launches == {"viterbi": 1}, f"decode launches {launches}, expected one viterbi launch a batch")
     return out, dict(device_decode=secs / n_songs, forward=stage["forward_s"] / n_songs,
                      backtrack=stage["backtrack_s"] / n_songs)
@@ -1618,8 +1619,7 @@ def _separator_serving(stats: dict, trace: bool) -> None:
     from zeronotesamba_torch.data.synthetic import click_track
     from zeronotesamba_torch.infer import BeatTracker
     from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
-    from zeronotesamba_torch.ops.cuda import dbn_kernel
-    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+    from zeronotesamba_torch.utils import profiling
 
     sig, _ = click_track(30.0, 120.0, seed=0)
     kw = dict(separation="learned", sep_model=SEPARATOR_NPZ, decoder="dbn")
@@ -1628,14 +1628,12 @@ def _separator_serving(stats: dict, trace: bool) -> None:
     gpu.track_signal(sig, **kw)  # loads the MaskNet onto the card once
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    for counts in (vk.LAUNCHES, dbn_kernel.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    before = profiling.totals()
     t0 = time.perf_counter()
     res_g = gpu.track_signal(sig, **kw)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = {**vk.LAUNCHES, **dbn_kernel.LAUNCHES}
+    launches = {**_counted("vqt_launch.", before), **_counted("dbn_launch.", before)}
     check(launches == {"cascade": 1, "octave": 1, "viterbi": 0}, f"learned path launches {launches}")
     for kname, n in launches.items():
         stats[kname]["learned_path_launches"] = n
@@ -1729,19 +1727,16 @@ def _suite_run(stats: dict) -> str:
     import shutil
 
     from zeronotesamba_torch.experiments.demo_suite import DemoSuiteConfig, run_demo_suite
-    from zeronotesamba_torch.ops.cuda import dbn_kernel
-    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
+    from zeronotesamba_torch.utils import profiling
 
     out_dir = os.path.join(OUT_DIR, "suite")
     shutil.rmtree(out_dir, ignore_errors=True)
     cfg = DemoSuiteConfig(out_dir=out_dir, **SUITE)
-    for counts in (vk.LAUNCHES, dbn_kernel.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    before = profiling.totals()
     t0 = time.perf_counter()
     summary = run_demo_suite(cfg, device="cuda")
     secs = time.perf_counter() - t0
-    launches = {**vk.LAUNCHES, **dbn_kernel.LAUNCHES}
+    launches = {**_counted("vqt_launch.", before), **_counted("dbn_launch.", before)}
     songs = cfg.n_songs + cfg.n_songs_b + cfg.pretext_songs + cfg.proxy_songs
     check(launches == {"cascade": 3 * songs, "octave": 3 * songs, "viterbi": 0},
           f"suite launches {launches}, expected {3 * songs} of each VQT kernel (3 a corpus song)")
@@ -1970,8 +1965,6 @@ def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
     process."""
     import shutil
 
-    from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
-
     stem_root = os.path.join(OUT_DIR, "pretext_stems")
     run_dir = os.path.join(OUT_DIR, "mesh_cli")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -1989,10 +1982,10 @@ def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
     check(p["ranks"] == torch.cuda.device_count() and p["epochs"] == 2 and math.isfinite(p["best_val_loss"]),
           f"pretext --data-parallel {p}")
     launches, n_items = p["bank_vqt_launches"], p["bank_items"]
-    check(n_items == len(bank) and launches == {k: 2 * n_items for k in vk.LAUNCHES},
+    check(n_items == len(bank) and launches == {k: 2 * n_items for k in ("cascade", "octave")},
           f"pretext --data-parallel bank of {n_items} items (phase 8: {len(bank)}) launched {launches}, "
           "expected 2 of each kernel an item")
-    for kname in vk.LAUNCHES:
+    for kname in ("cascade", "octave"):
         stats[kname]["data_parallel_bank_launches_per_item"] = launches[kname] / n_items
     check(os.listdir(run_dir) == [os.path.basename(ckpt)], f"checkpoints written: {os.listdir(run_dir)}")
     check(out["infer"]["n_frames"] == 501, f"infer --params output {out['infer']}")
@@ -2042,11 +2035,11 @@ def _mesh_axes_rank(mesh0, t_spawn, shapes, arrays, lr):
     replaying its share of them, and times MESH_AXES_STEPS more. Rank 0
     returns the errors against the single-device step; every rank its times,
     halo and channel bytes and peak memory."""
-    from zeronotesamba_torch.parallel import sequence, tensor
     from zeronotesamba_torch.parallel.mesh import gather_params_tp, gather_tp, make_mesh, shard_params_tp, \
         spectrogram_sharding
     from zeronotesamba_torch.train.state import downstream_learning_rate
     from zeronotesamba_torch.train.supervised import SupervisedConfig, init_state, train_step
+    from zeronotesamba_torch.utils import profiling
     from zeronotesamba_torch.utils.parity import PiecewiseDecisions
 
     torch.backends.cudnn.deterministic = True
@@ -2092,10 +2085,11 @@ def _mesh_axes_rank(mesh0, t_spawn, shapes, arrays, lr):
         xs = [spectrogram_sharding(mesh)(a) for a in full]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        counts0 = sequence.COUNTS["halo_bytes"], tensor.COUNTS["channel_bytes"]
+        before = profiling.totals()
         with decisions.shard(mesh).replay():
             state, loss, _ = train_step(state, *xs, None, cfg.status, mesh=mesh)
-        bytes_step = sequence.COUNTS["halo_bytes"] - counts0[0], tensor.COUNTS["channel_bytes"] - counts0[1]
+        bytes_step = (_counted("sequence.", before).get("halo_bytes", 0),
+                      _counted("tensor.", before).get("channel_bytes", 0))
         grads = gather_tp(mesh, state.model, {k: p.grad for k, p in state.model.named_parameters()})
         params = gather_params_tp(mesh, state.model)
         step_ms = timed_steps(state, xs, mesh)
@@ -2298,7 +2292,7 @@ def _multistep_shape(name, engine, status, dtype, batch, frames, tracks, smi: st
     memory (an eager step's own, over what was allocated before it, beside
     the graph pool's bytes), and the device's idle share over 8 steps each
     way (a replay; eager steps) from the profiler."""
-    from zeronotesamba_torch.train import multistep
+    from zeronotesamba_torch.utils import profiling
 
     t_shape = time.perf_counter()
     k_call = MULTISTEP_K
@@ -2317,14 +2311,14 @@ def _multistep_shape(name, engine, status, dtype, batch, frames, tracks, smi: st
         e_outs.append(out)
     peak_eager = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    captures = multistep.COUNTS["captures"]
+    captures = profiling.totals("multistep.")["captures"]
     t0 = time.perf_counter()
     graph, g_losses, g_outs = multi_step(graph, 0)
     first_call_s = time.perf_counter() - t0
     peak_graph = torch.cuda.max_memory_allocated()
     pool_bytes = _graph_pool_bytes()
     (entry,) = graph.graphs.values()
-    check(multistep.COUNTS["captures"] == captures + 1, f"{name}: the first K-step call did not capture")
+    check(profiling.totals("multistep.")["captures"] == captures + 1, f"{name}: the first K-step call did not capture")
     e_outs = torch.stack(e_outs)
     pairs = [(a, b) for a, b in zip(graph.model.parameters(), eager.model.parameters())]
     bitwise = (g_losses == e_losses and torch.equal(g_outs, e_outs)
@@ -2346,7 +2340,7 @@ def _multistep_shape(name, engine, status, dtype, batch, frames, tracks, smi: st
             eager, _, _ = eager_step(eager, s)
 
     prof["k1"] = _profiled(eager_window)
-    check(multistep.COUNTS["captures"] == captures + 1, f"{name}: a replay captured again")
+    check(profiling.totals("multistep.")["captures"] == captures + 1, f"{name}: a replay captured again")
     k1_ms, k8_ms = statistics.median(e_ms), (first_call_s - entry.seconds) * 1e3 / k_call
     # The profiler's own host cost slows the eager steps (up to 45% here at
     # BockTCN's step), so the idle share is also given at the unprofiled
@@ -2378,7 +2372,7 @@ def _multistep_beat(ds, smi: str) -> None:
     import logging
     import shutil
 
-    from zeronotesamba_torch.train import multistep
+    from zeronotesamba_torch.utils import profiling
 
     root = os.path.join(OUT_DIR, "multistep")
     shutil.rmtree(root, ignore_errors=True)
@@ -2400,13 +2394,12 @@ def _multistep_beat(ds, smi: str) -> None:
         for k in (8, 1):
             handler.k = k
             out = os.path.join(root, f"beat_k{k}.json")
-            before = dict(multistep.COUNTS)
+            before = profiling.totals()
             secs, _ = _cli(["beat", "--data", data, "--folds", "4", "--max-epochs", "2", "--batch-size", "1",
                             "--steps-per-call", str(k), "--out", out, "--device", "cuda"], in_process=True)
             with open(out) as fh:
                 runs[k] = dict(seconds=secs, results=json.load(fh),
-                               captures=multistep.COUNTS["captures"] - before["captures"],
-                               replays=multistep.COUNTS["replays"] - before["replays"])
+                               **_counted("multistep.", before))
     finally:
         torch.backends.cudnn.deterministic = False
         logger.removeHandler(handler)

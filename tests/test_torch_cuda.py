@@ -32,6 +32,7 @@ from zeronotesamba_torch.infer import BeatTracker
 from zeronotesamba_torch.ops.cuda import vqt_kernel as vk
 from zeronotesamba_torch.ops.filterbank import XQTParams
 from zeronotesamba_torch.ops.vqt import log_xqt
+from zeronotesamba_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -58,7 +59,7 @@ def test_kernels_match_plain(cuda, batch, seconds):
     p = XQTParams()
     y = _signal(9, batch, seconds, cuda)
     x0 = vk.cascade_input(y, p)
-    before = dict(vk.LAUNCHES)
+    before = profiling.totals("vqt_launch.")
     packed = vk.decimation_cascade_packed(x0, 7)
     got = vk.unpack_levels(packed, x0.shape[1])
     for g, r in zip(got, vk.decimation_cascade_plain(x0, 7)):
@@ -71,11 +72,10 @@ def test_kernels_match_plain(cuda, batch, seconds):
     vk.octaves_log_xqt_plain(x0, packed, table, banks, out_p, log_eps=p.log_eps)
     torch.cuda.synchronize()
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=1e-4)
-    assert vk.LAUNCHES["cascade"] == before["cascade"] + 1
-    assert vk.LAUNCHES["octave"] == before["octave"] + 1
-    before = dict(vk.LAUNCHES)
+    assert profiling.totals("vqt_launch.") == {"cascade": before["cascade"] + 1, "octave": before["octave"] + 1}
+    before = profiling.totals("vqt_launch.")
     torch.testing.assert_close(vk.log_xqt_fused(y, p), log_xqt(y, p), rtol=0, atol=5e-4)
-    assert vk.LAUNCHES == {"cascade": before["cascade"] + 1, "octave": before["octave"] + 1}
+    assert profiling.totals("vqt_launch.") == {"cascade": before["cascade"] + 1, "octave": before["octave"] + 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -123,9 +123,10 @@ def test_train_step_card_matches_cpu(cuda):
 def test_beat_tracker_card_matches_cpu(cuda):
     sig, _ = click_track(6.0, 120.0, seed=3)
     gpu, cpu = BeatTracker(seed=1, device="cuda"), BeatTracker(seed=1, device="cpu")
-    before = dict(vk.LAUNCHES)
+    before = profiling.totals("vqt_launch.")
     res_g = gpu.track_signal(sig, separation="hpss", decoder="dbn")
-    assert vk.LAUNCHES["cascade"] > before["cascade"] and vk.LAUNCHES["octave"] > before["octave"]
+    after = profiling.totals("vqt_launch.")
+    assert after["cascade"] > before["cascade"] and after["octave"] > before["octave"]
     res_c = cpu.track_signal(sig, separation="hpss", decoder="dbn")
     for name in ("anchor_pulse", "positive_pulse", "fused_pulse"):
         np.testing.assert_allclose(getattr(res_g, name), getattr(res_c, name), atol=1e-3, err_msg=name)
@@ -216,10 +217,10 @@ def test_pretext_banks_launch_each_kernel_once_a_log_vqt(cuda, tmp_path):
         audio_io.write_wav(str(mixes / f"m{i}.wav"), anchor + positive, 16000)
     for build, per_item in ((lambda: build_bank_from_stem_root(str(stems), 3, clip_len_s=2.0, device="cuda"), 2),
                             (lambda: gen_clmr_bank(str(mixes), 3, clip_frames=64, clip_len_s=2.0, device="cuda"), 1)):
-        before = dict(vk.LAUNCHES)
+        before = profiling.totals("vqt_launch.")
         bank = build()
         assert len(bank) == 3 and np.isfinite(bank).all()
-        assert vk.LAUNCHES == {k: before[k] + per_item * 3 for k in before}
+        assert profiling.totals("vqt_launch.") == {k: before[k] + per_item * 3 for k in before}
 
 
 def _golden():
@@ -229,10 +230,10 @@ def _golden():
 def _viterbi_equal_on_card(la, lna, space, threads=0):
     from zeronotesamba_torch.ops.cuda import dbn_kernel
 
-    before = dict(dbn_kernel.LAUNCHES)
+    before = profiling.totals("dbn_launch.")["viterbi"]
     got = dbn_kernel._viterbi_forward_cuda(la, lna, space, threads) if threads else \
         dbn_kernel.viterbi_forward(la, lna, space)
-    assert dbn_kernel.LAUNCHES["viterbi"] == before["viterbi"] + 1
+    assert profiling.totals("dbn_launch.")["viterbi"] == before + 1
     ref = dbn_kernel.viterbi_forward_plain(la, lna, space)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
@@ -341,7 +342,6 @@ def test_multistep_graph_equals_eager_steps(cuda):
     cuDNN deterministic: losses, outputs and parameters bit for bit at the
     capturing call and at a replay; the caller's generators end as the eager
     steps leave theirs; the replay captures nothing."""
-    from zeronotesamba_torch.train import multistep
     from zeronotesamba_torch.train.supervised import (
         SupervisedConfig, dropout_generator, init_state, make_multistep_train_step,
     )
@@ -353,11 +353,11 @@ def test_multistep_graph_equals_eager_steps(cuda):
     with _deterministic_cudnn():
         graph, eager = init_state(cfg, None, 3, device=cuda), init_state(cfg, None, 3, device=cuda)
         for call, rows in enumerate(idx):
-            before = dict(multistep.COUNTS)
+            before = profiling.totals("multistep.")
             gens = [dropout_generator(2, 3 * call + k, "cuda") for k in range(3)]
             graph, losses, outs = step(graph, *bucket, rows, gens)
-            assert multistep.COUNTS == {"captures": before["captures"] + (call == 0),
-                                        "replays": before["replays"] + 1}
+            assert profiling.totals("multistep.") == {"captures": before["captures"] + (call == 0),
+                                                      "replays": before["replays"] + 1}
             e_gens = [dropout_generator(2, 3 * call + k, "cuda") for k in range(3)]
             e_losses, e_outs = _eager_steps(eager, bucket, rows, e_gens, cfg.status)
             assert torch.equal(losses, e_losses) and torch.equal(outs, e_outs)
@@ -394,7 +394,6 @@ def test_multistep_recaptures_after_load_state_dict(cuda, tmp_path):
     """A resume replaces the optimizer's state tensors: the next K-step call
     captures anew (it never replays the stale graph) and matches eager steps
     from the same checkpoint, bit for bit."""
-    from zeronotesamba_torch.train import multistep
     from zeronotesamba_torch.train.checkpoint import CheckpointManager
     from zeronotesamba_torch.train.supervised import SupervisedConfig, init_state, make_multistep_train_step
 
@@ -408,11 +407,11 @@ def test_multistep_recaptures_after_load_state_dict(cuda, tmp_path):
         state, *_ = step(state, *bucket, idx, [None, None])
         mgr.save(0, state)
         state, *_ = step(state, *bucket, idx, [None, None])  # moves on from the checkpoint
-        captures = multistep.COUNTS["captures"]
+        captures = profiling.totals("multistep.")["captures"]
         state = mgr.restore(state)
         assert state.optimizer.param_groups[0]["capturable"]
         state, losses, _ = step(state, *bucket, idx, [None, None])
-        assert multistep.COUNTS["captures"] == captures + 1
+        assert profiling.totals("multistep.")["captures"] == captures + 1
         eager = mgr.restore(init_state(cfg, None, 4, device=cuda))
         e_losses, _ = _eager_steps(eager, bucket, idx, (None, None), cfg.status)
         assert torch.equal(losses, e_losses)

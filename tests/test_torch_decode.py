@@ -46,6 +46,7 @@ from zeronotesamba_torch.decode import dbn as dbn_mod
 from zeronotesamba_torch.decode import dbn_device, dbn_native
 from zeronotesamba_torch.metrics.beat import evaluate_beats, f_measure
 from zeronotesamba_torch.ops.cuda import dbn_kernel
+from zeronotesamba_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -106,11 +107,11 @@ def test_native_library_is_the_ports_own_build():
 
 def test_decode_beats_counts_its_backend():
     act = _pulse(120, 8.0)
-    before = dict(dbn_mod.BACKEND_CALLS)
+    before = profiling.totals("dbn.")
     decode_beats(act)
     decode_beats(act, use_native=False)
     decode(act, "dbn")
-    assert dbn_mod.BACKEND_CALLS == {"native": before["native"] + 2, "numpy": before["numpy"] + 1}
+    assert profiling.totals("dbn.") == {"native": before["native"] + 2, "numpy": before["numpy"] + 1}
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):
@@ -206,11 +207,11 @@ def test_viterbi_space_and_wrapper_checks():
         dbn_kernel.viterbi_forward(la.double(), la.double(), space)
     with pytest.raises(ValueError):
         dbn_kernel.viterbi_forward(la, torch.zeros(2, 9), space)
-    before = dict(dbn_kernel.LAUNCHES)
+    before = profiling.totals("dbn_launch.")
     v, fc, best = dbn_kernel.viterbi_forward(torch.zeros(0, 8), torch.zeros(0, 8), space)
     assert v.shape == (0, 2210) and fc.shape == (0, 8, 52) and best.shape == (0, 8)
     dbn_kernel.viterbi_forward(la, la, space)
-    assert dbn_kernel.LAUNCHES == before  # the CPU runs the plain version, no launch
+    assert profiling.totals("dbn_launch.") == before  # the CPU runs the plain version, no launch
 
 
 # --------------------------------------------------------------------------

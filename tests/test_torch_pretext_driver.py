@@ -32,7 +32,6 @@ from zeronotesamba_torch.train.pretext import (
     make_staged_train_step,
     make_train_step,
 )
-from zeronotesamba_torch.utils import profiling
 from zeronotesamba_torch.utils.plotting import plot_history
 
 torch.set_num_threads(2)
@@ -179,19 +178,6 @@ def test_figures_and_trace(tmp_path):
     (name,) = os.listdir(traces)
     with open(os.path.join(traces, name)) as fh:
         assert json.load(fh)["traceEvents"]
-
-
-def test_profiling_timers(tmp_path):
-    profiling.timing_summary(reset=True)
-    for _ in range(2):
-        with profiling.timer("decode"), profiling.annotate("decode"):
-            pass
-    summary = profiling.timing_summary()
-    assert summary["decode"]["count"] == 2
-    profiling.dump_timings(str(tmp_path / "t.json"))
-    with open(tmp_path / "t.json") as fh:
-        assert json.load(fh)["decode"]["count"] == 2
-    assert profiling.timing_summary(reset=True) and profiling.timing_summary() == {}
 
 
 def test_cli_pretext_on_cpu(tmp_path, capsys):

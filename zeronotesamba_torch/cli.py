@@ -439,7 +439,7 @@ def _pretext(mesh, args):
     from zeronotesamba_torch.experiments.pretext_driver import (
         PretextRunConfig, build_bank_from_stem_root, train_pretext,
     )
-    from zeronotesamba_torch.ops.cuda import vqt_kernel
+    from zeronotesamba_torch.utils import profiling
 
     device = args.device if mesh is None else mesh.device
     lead = mesh is None or mesh.rank == 0
@@ -449,10 +449,10 @@ def _pretext(mesh, args):
         with np.load(args.bank) as z:
             train_bank, val_bank = z["train_bank"], z["val_bank"]
     elif lead:
-        before = dict(vqt_kernel.LAUNCHES)
+        before = profiling.totals("vqt_launch.")
         bank = build_bank_from_stem_root(args.stem_root, n_samples=10**9, seed=args.seed, device=device)
         built = {"bank_items": len(bank),
-                 "bank_vqt_launches": {k: n - before[k] for k, n in vqt_kernel.LAUNCHES.items()}}
+                 "bank_vqt_launches": {k: n - before.get(k, 0) for k, n in profiling.totals("vqt_launch.").items()}}
         n_val = max(1, len(bank) // 10)
         val_bank, train_bank = bank[:n_val], bank[n_val:]
     if mesh is not None:

@@ -9,6 +9,7 @@ from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, beat_activation
 from zeronotesamba_torch.decode.dbn_device import decode_beats_batch_device, decode_beats_device
 from zeronotesamba_torch.decode.dbn_online import OnlineBeatDecoder, decode_beats_online
 from zeronotesamba_torch.decode.ellis import beat_track_dp, beat_track_signal, estimate_tempo, onset_strength
+from zeronotesamba_torch.utils import profiling
 
 
 def threshold_beats(activations: np.ndarray, thresh_val: float = 0.075, fps: float = 62.5) -> np.ndarray:
@@ -19,12 +20,13 @@ def threshold_beats(activations: np.ndarray, thresh_val: float = 0.075, fps: flo
 
 def decode(activations: np.ndarray, method: str = "dbn", *, fps: float = 62.5, thresh_val: float = 0.075) -> np.ndarray:
     """Dispatch on the reference's three decoder modes ('dbn'/'librosa'/'threshold')."""
-    if method == "dbn":
-        return beat_activation_to_times(activations, fps=fps)
-    if method in ("librosa", "ellis"):
-        return beat_track_dp(activations, fps=fps)
-    if method == "threshold":
-        return threshold_beats(activations, thresh_val=thresh_val, fps=fps)
+    with profiling.span("decode"):
+        if method == "dbn":
+            return beat_activation_to_times(activations, fps=fps)
+        if method in ("librosa", "ellis"):
+            return beat_track_dp(activations, fps=fps)
+        if method == "threshold":
+            return threshold_beats(activations, thresh_val=thresh_val, fps=fps)
     raise ValueError(f"unknown decoder {method!r} (expected dbn|librosa|threshold)")
 
 

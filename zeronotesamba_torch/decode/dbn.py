@@ -26,8 +26,11 @@ import functools
 
 import numpy as np
 
-# Viterbi runs by backend, so a caller can show which one decoded.
-BACKEND_CALLS = {"native": 0, "numpy": 0}
+from zeronotesamba_torch.utils import profiling
+
+# Viterbi runs by backend (``profiling.totals("dbn.")``), so a caller can show which one decoded.
+profiling.count("dbn.native", 0)
+profiling.count("dbn.numpy", 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,14 +119,14 @@ def decode_beats(
     eps = np.spacing(1)
     log_act = np.log(act + eps)
     log_nact = np.log((1.0 - act) / (cfg.observation_lambda - 1) + eps)
-    if use_native:
-        from zeronotesamba_torch.decode.dbn_native import viterbi_native
+    with profiling.span("decode.viterbi"):
+        if use_native:
+            from zeronotesamba_torch.decode.dbn_native import viterbi_native
 
-        path = viterbi_native(log_act, log_nact, intervals, log_trans, is_beat, firsts, lasts)
-        BACKEND_CALLS["native"] += 1
-    else:
-        path = _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_beat)
-        BACKEND_CALLS["numpy"] += 1
+            path = viterbi_native(log_act, log_nact, intervals, log_trans, is_beat, firsts, lasts)
+        else:
+            path = _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_beat)
+    profiling.count("dbn.native" if use_native else "dbn.numpy")
 
     beat_range = is_beat[path]
     if cfg.correct:

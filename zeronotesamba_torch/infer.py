@@ -22,6 +22,7 @@ from zeronotesamba_torch.models.encoder import FusedDownstream
 from zeronotesamba_torch.models.weights import load_weights, reference_state_dict
 from zeronotesamba_torch.ops.filterbank import XQTParams
 from zeronotesamba_torch.ops.vqt import best_log_xqt
+from zeronotesamba_torch.utils import profiling
 
 SAMPLE_RATE = 16000
 FPS = 62.5
@@ -78,21 +79,28 @@ class BeatTracker:
         decoder: Optional[str] = "dbn",
         mode: str = "vqt",
     ) -> InferenceResult:
-        sig = np.asarray(signal, dtype=np.float32)
-        if sr != SAMPLE_RATE:
-            from zeronotesamba_torch.ops.resample import resample_poly_host
+        with profiling.span("track", request=True):
+            sig = np.asarray(signal, dtype=np.float32)
+            if sr != SAMPLE_RATE:
+                from zeronotesamba_torch.ops.resample import resample_poly_host
 
-            sig = resample_poly_host(sig, sr, SAMPLE_RATE)
-        anchor, positive = separate(sig, SAMPLE_RATE, backend=separation, stem_dir=stem_dir,
-                                    model_path=sep_model, device=self.device)
-        params = XQTParams(sample_rate=SAMPLE_RATE, mode=mode)
-        with torch.inference_mode():
-            y = torch.as_tensor(np.stack([anchor, positive]), device=self.device)
-            vqts = best_log_xqt(y, params)  # (2, 96, T)
-            anc_p, pos_p = self.model.pretext(vqts[0:1, None], vqts[1:2, None])
-            fused = self.model.fuse(anc_p, pos_p)
-            anc_np, pos_np, fused_np, vqt_np = (t.cpu().numpy() for t in (anc_p[0], pos_p[0], fused[0], vqts))
-        beats = decode_fn(fused_np, decoder, fps=FPS) if decoder else None
+                sig = resample_poly_host(sig, sr, SAMPLE_RATE)
+            with profiling.span("track.separate"):
+                anchor, positive = separate(sig, SAMPLE_RATE, backend=separation, stem_dir=stem_dir,
+                                            model_path=sep_model, device=self.device)
+            params = XQTParams(sample_rate=SAMPLE_RATE, mode=mode)
+            with torch.inference_mode():
+                with profiling.span("track.upload"):
+                    y = profiling.to_device(np.stack([anchor, positive]), self.device)
+                with profiling.span("track.transform"):
+                    vqts = best_log_xqt(y, params)  # (2, 96, T)
+                with profiling.span("track.encode"):
+                    anc_p, pos_p = self.model.pretext(vqts[0:1, None], vqts[1:2, None])
+                    fused = self.model.fuse(anc_p, pos_p)
+                with profiling.span("track.download"):
+                    anc_np, pos_np, fused_np, vqt_np = (profiling.to_host(t)
+                                                        for t in (anc_p[0], pos_p[0], fused[0], vqts))
+            beats = decode_fn(fused_np, decoder, fps=FPS) if decoder else None
         return InferenceResult(
             anchor_pulse=anc_np,
             positive_pulse=pos_np,

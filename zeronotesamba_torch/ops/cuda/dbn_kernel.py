@@ -7,7 +7,8 @@ tempo choices into the chain heads and each frame's best state.
 ``viterbi_forward`` launches csrc/dbn_viterbi.cu (one launch a batch, the
 frame loop inside the kernel) for CUDA tensors and runs the plain version,
 a loop over frames of (batch, n_states) tensor operations, for CPU tensors;
-there is no fallback between the two. ``LAUNCHES`` counts kernel launches.
+there is no fallback between the two. ``profiling.totals("dbn_launch.")``
+counts kernel launches.
 
 The kernel runs the frames in rounds of R = ``frames_per_round(firsts,
 lasts)``: the largest of ``ROUND_FRAMES`` (the round lengths it is compiled
@@ -31,7 +32,9 @@ import functools
 import numpy as np
 import torch
 
-LAUNCHES = {"viterbi": 0}
+from zeronotesamba_torch.utils import profiling
+
+profiling.count("dbn_launch.viterbi", 0)
 # The round lengths csrc/dbn_viterbi.cu is instantiated for (the cases of zns_dbn_viterbi's switch).
 ROUND_FRAMES = (1, 2, 3, 4, 6, 8, 12, 16, 17, 24)
 
@@ -160,7 +163,7 @@ def _viterbi_forward_cuda(log_act: torch.Tensor, log_nact: torch.Tensor, space: 
                        space.frames_per_round, threads, v_final.data_ptr(), fc.data_ptr(), best.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dbn_viterbi kernel launch failed: CUDA error {err}")
-    LAUNCHES["viterbi"] += 1
+    profiling.count("dbn_launch.viterbi")
     return v_final, fc, best
 
 

@@ -14,8 +14,8 @@ Counterpart of zeronotesamba_tpu/ops/pallas/vqt_kernel.py:
 
 Each kernel function takes its plain PyTorch version for a CPU tensor and
 launches the kernel for a CUDA tensor; there is no fallback between the two.
-``LAUNCHES`` counts kernel launches, so a run can show that it went through
-the kernels.
+``profiling.totals("vqt_launch.")`` counts kernel launches, so a run can
+show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,8 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from zeronotesamba_torch.ops.filterbank import XQTParams, halfband_decimation_filter, octave_banks_f32
+from zeronotesamba_torch.utils import profiling
 
-LAUNCHES = {"cascade": 0, "octave": 0}
+profiling.count("vqt_launch.cascade", 0)
+profiling.count("vqt_launch.octave", 0)
 
 TAPS = 81
 HALF = TAPS // 2
@@ -158,7 +160,7 @@ def _decimation_cascade_cuda(x: torch.Tensor, out: torch.Tensor, n_levels: int) 
         err = fn(x.data_ptr(), out.data_ptr(), ctypes.addressof(_polyphase_taps_c()), b, length, n_levels,
                  out.stride(0), stream)
     _raise_on(err, "cascade kernel")
-    LAUNCHES["cascade"] += 1
+    profiling.count("vqt_launch.cascade")
 
 
 def decimation_cascade_packed(x: torch.Tensor, n_levels: int = MAX_LEVELS) -> torch.Tensor:
@@ -231,7 +233,7 @@ def _octaves_log_xqt_cuda(
             log_eps, stream,
         )
     _raise_on(err, "octave kernel")
-    LAUNCHES["octave"] += 1
+    profiling.count("vqt_launch.octave")
 
 
 def octaves_log_xqt(

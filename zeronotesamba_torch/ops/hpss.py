@@ -16,6 +16,7 @@ import torch
 
 from zeronotesamba_torch.device import resolve_device
 from zeronotesamba_torch.ops.vqt import _reflect_pad_last
+from zeronotesamba_torch.utils import profiling
 
 
 def _hann(n: int, device: torch.device) -> torch.Tensor:
@@ -78,7 +79,7 @@ def hpss(y: torch.Tensor, n_fft: int = 2048, hop: int = 512, kernel: int = 17, p
 def hpss_host(y: np.ndarray, device: str | torch.device = "cuda", **kw):
     """Single-signal wrapper: mono numpy -> (harmonic, percussive) numpy,
     computed on ``device``."""
-    x = torch.as_tensor(np.asarray(y, dtype=np.float32), device=resolve_device(device))[None, :]
+    x = profiling.to_device(np.asarray(y, dtype=np.float32), resolve_device(device))[None, :]
     with torch.inference_mode():
         h, p = hpss(x, **kw)
-    return h[0].cpu().numpy(), p[0].cpu().numpy()
+    return profiling.to_host(h[0]), profiling.to_host(p[0])

@@ -12,8 +12,9 @@ The exchange is one ``all_gather`` in the time group, forward and backward,
 of each rank's two edge blocks; each rank keeps its neighbours' and
 discards the rest. Point-to-point sends are not used: several gloo ranks
 may share one card, and gloo's send and recv of CUDA tensors are not
-relied on. ``COUNTS["halo_bytes"]`` adds up the bytes the gathers deliver
-to this rank from the others, forward and backward.
+relied on. The counter ``sequence.halo_bytes`` (``utils/profiling.count``)
+adds up the bytes the gathers deliver to this rank from the others, forward
+and backward.
 """
 
 from __future__ import annotations
@@ -22,13 +23,15 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-COUNTS = {"halo_bytes": 0}
+from zeronotesamba_torch.utils import profiling
+
+profiling.count("sequence.halo_bytes", 0)
 
 
 def _gather_edges(edges: torch.Tensor, mesh) -> list:
     parts = [torch.empty_like(edges) for _ in range(mesh.shape["time"])]
     dist.all_gather(parts, edges.contiguous(), group=mesh.groups["time"])
-    COUNTS["halo_bytes"] += (len(parts) - 1) * edges.numel() * edges.element_size()
+    profiling.count("sequence.halo_bytes", (len(parts) - 1) * edges.numel() * edges.element_size())
     return parts
 
 

@@ -17,8 +17,9 @@ Gradients, as Megatron-LM's column-parallel layers take them:
   channels, so the input's gradient on each rank is a partial sum:
   ``replicated_input`` sums it over the model ranks in its backward.
 
-``COUNTS["channel_bytes"]`` adds up the bytes both collectives deliver to
-this rank from the others, forward and backward.
+The counter ``tensor.channel_bytes`` (``utils/profiling.count``) adds up the
+bytes both collectives deliver to this rank from the others, forward and
+backward.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-COUNTS = {"channel_bytes": 0}
+from zeronotesamba_torch.utils import profiling
+
+profiling.count("tensor.channel_bytes", 0)
 
 
 class _ReplicatedInput(torch.autograd.Function):
@@ -41,7 +44,7 @@ class _ReplicatedInput(torch.autograd.Function):
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.mesh.groups["model"])
-        COUNTS["channel_bytes"] += (ctx.mesh.shape["model"] - 1) * grad.numel() * grad.element_size()
+        profiling.count("tensor.channel_bytes", (ctx.mesh.shape["model"] - 1) * grad.numel() * grad.element_size())
         return grad, None
 
 
@@ -54,7 +57,7 @@ class _GatherChannels(torch.autograd.Function):
         ctx.mesh, ctx.c = mesh, x.shape[1]
         parts = [torch.empty_like(x) for _ in range(mesh.shape["model"])]
         dist.all_gather(parts, x.contiguous(), group=mesh.groups["model"])
-        COUNTS["channel_bytes"] += (len(parts) - 1) * x.numel() * x.element_size()
+        profiling.count("tensor.channel_bytes", (len(parts) - 1) * x.numel() * x.element_size())
         return torch.cat(parts, dim=1)
 
     @staticmethod

@@ -50,10 +50,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from zeronotesamba_torch.train.state import TrainState
+from zeronotesamba_torch.utils import profiling
 
 WARMUP_STEPS = 1
-# Graph captures and replays of this process, as the kernels count launches.
-COUNTS = {"captures": 0, "replays": 0}
+# Graph captures and replays of this process (``profiling.totals("multistep.")``), as the kernels count launches.
+profiling.count("multistep.captures", 0)
+profiling.count("multistep.replays", 0)
 _POOLS: Dict[int, tuple] = {}
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
@@ -150,7 +152,7 @@ def _capture(state: TrainState, step_fn: StepFn, inputs, generators, device: tor
             outputs = tuple(torch.stack(col) for col in zip(*steps))
     finally:
         state.step = saved[3]  # the capture ran no step
-    COUNTS["captures"] += 1
+    profiling.count("multistep.captures")
     return _Graph(graph, state_signature(state), static, gens, outputs, tuple(keep), time.perf_counter() - t0)
 
 
@@ -188,7 +190,7 @@ def run_steps(state: TrainState, key: tuple, step_fn: StepFn, inputs: Sequence, 
     for mine, theirs in zip(entry.generators or (), generators):
         mine.set_state(theirs.get_state())
     entry.graph.replay()
-    COUNTS["replays"] += 1
+    profiling.count("multistep.replays")
     outputs = tuple(t.clone() for t in entry.outputs)
     for mine, theirs in zip(entry.generators or (), generators):
         theirs.set_state(mine.get_state())

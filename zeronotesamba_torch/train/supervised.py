@@ -50,6 +50,7 @@ from zeronotesamba_torch.models.weights import load_weights
 from zeronotesamba_torch.parallel.mesh import Mesh, all_reduce_grads, rank_generator
 from zeronotesamba_torch.train.multistep import run_steps
 from zeronotesamba_torch.train.state import TrainState, make_optimizer
+from zeronotesamba_torch.utils import profiling
 
 FPS = 62.5
 PAD_VALUE = float(np.log(1e-9))  # the log-VQT silence floor
@@ -307,7 +308,8 @@ def run_epoch(
     def score_batch(out_np: np.ndarray, rows: np.ndarray, bucket: Bucket) -> None:
         for b, row in enumerate(rows):
             est = decode_beats_fn(out_np[b, : bucket.n_frames[row]], cfg.eval_method, fps=FPS)
-            all_scores.append(evaluate_beats(bucket.beat_times[row], est))
+            with profiling.span("score"):
+                all_scores.append(evaluate_beats(bucket.beat_times[row], est))
 
     i = 0
     while i < len(plan):
@@ -321,27 +323,33 @@ def run_epoch(
                 group.append(plan[i + len(group)][1])
             if len(group) == k_call:
                 gens = [dropout_generator(cfg.dropout_seed, epoch * 100003 + i + k, dev) for k in range(k_call)]
-                state, losses_k, outs = make_multistep_train_step(cfg.status)(
-                    state, bucket.vqt, bucket.pulse, bucket.mask, np.stack(group), gens, cfg.pos_weight)
-                losses.extend(losses_k.tolist())
+                with profiling.span("epoch.step", request=True):
+                    state, losses_k, outs = make_multistep_train_step(cfg.status)(
+                        state, bucket.vqt, bucket.pulse, bucket.mask, np.stack(group), gens, cfg.pos_weight)
+                    losses.extend(profiling.to_host(losses_k).tolist())
                 if score:
-                    outs_np = outs.cpu().numpy()
+                    with profiling.span("epoch.download"):
+                        outs_np = profiling.to_host(outs)
                     for k, rws in enumerate(group):
                         score_batch(outs_np[k], rws, bucket)
                 i += k_call
                 continue
-        idx = torch.as_tensor(rows, dtype=torch.int64, device=dev)
-        vqt = bucket.vqt.index_select(0, idx)
-        pulse = bucket.pulse.index_select(0, idx)
-        mask = bucket.mask.index_select(0, idx)
-        if train:
-            gen = dropout_generator(cfg.dropout_seed, epoch * 100003 + i, dev)
-            state, loss, out = train_step(state, vqt, pulse, mask, gen, cfg.status, cfg.pos_weight)
-        else:
-            loss, out = eval_step(state, vqt, pulse, mask, cfg.status, cfg.pos_weight)
-        losses.append(float(loss))
+        with profiling.span("epoch.batch", request=True):
+            idx = profiling.to_device(rows, dev, torch.int64)
+            vqt = bucket.vqt.index_select(0, idx)
+            pulse = bucket.pulse.index_select(0, idx)
+            mask = bucket.mask.index_select(0, idx)
+        with profiling.span("epoch.step"):
+            if train:
+                gen = dropout_generator(cfg.dropout_seed, epoch * 100003 + i, dev)
+                state, loss, out = train_step(state, vqt, pulse, mask, gen, cfg.status, cfg.pos_weight)
+            else:
+                loss, out = eval_step(state, vqt, pulse, mask, cfg.status, cfg.pos_weight)
+            losses.append(float(profiling.to_host(loss)))
         if score:
-            score_batch(out.cpu().numpy(), rows, bucket)
+            with profiling.span("epoch.download"):
+                out_np = profiling.to_host(out)
+            score_batch(out_np, rows, bucket)
         i += 1
     metrics = np.mean(np.asarray(all_scores), axis=0) if all_scores else np.zeros(6)
     return state, float(np.mean(losses)) if losses else 0.0, metrics
