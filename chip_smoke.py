@@ -12,6 +12,12 @@ Phases, each printing one JSON line:
                  main path's shapes (and batch 2 x 10 s, 32 x 10 s, 1 x 0.5 s, and
                  a ragged 3 x 7.3 s), with times: kernel, plain version, one
                  library call, and the card's bound.
+   conv       -- the encoders' conv kernel at each of the 8 convs and at the song
+                 (1 x 1,876), fine-tune (8 x 1,920), pretext (16 x 313) and one
+                 mesh time rank's (8 x 480 and its halo) shapes: against a
+                 float64 conv within float32's rounding bound, the same bits
+                 twice, and its times beside the bound, the plain F.conv2d
+                 and cuDNN's per-shape pick (cudnn.benchmark, set only here).
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
                  the CPU with the same seeded weights; launch counters; the DBN
                  backend (native C++) and its numpy twin; the librosa decoder;
@@ -161,6 +167,7 @@ KERNEL_SOURCES = {
     "cascade": ("zeronotesamba_torch/csrc/vqt_cascade.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:157"),
     "octave": ("zeronotesamba_torch/csrc/vqt_octave.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:32"),
     "viterbi": ("zeronotesamba_torch/csrc/dbn_viterbi.cu", "zeronotesamba_tpu/decode/dbn_jax.py:23"),
+    "conv": ("zeronotesamba_torch/csrc/conv_fprop.cu", "none: the encoders' convs, which the JAX package leaves to XLA"),
 }
 # Golden activations whose device (float32) beats must equal the float64
 # decode's; on the others (noise, near-silence, short, seeded-weight pulses)
@@ -441,6 +448,89 @@ def phase_kernels(stats: dict, trace: bool) -> None:
     torch._C._cuda_clearCublasWorkspaces()
 
 
+# The encoder's conv shapes: (name, batch, frames, same padding). "mesh" is one
+# time rank of four at the fine-tune batch: 480 frames with the halo frames
+# of its neighbours, padded in frequency only (models/encoder.Encoder._conv).
+CONV_SHAPES = (("song", 1, 1876, True), ("finetune", 8, 1920, True), ("pretext", 16, 313, True),
+               ("mesh_t4", 8, 480, False))
+CONV_ROUNDING = 2.0 ** -24  # float32's unit roundoff
+
+
+def _conv_inputs(i: int, batch: int, frames: int, same: bool, seed: int):
+    """Conv i's input, weights, bias and padding at a shape, from a seed."""
+    from zeronotesamba_torch.models.encoder import CONV_SPECS, POOL_AFTER
+
+    h, cin = 96, 1
+    for j in range(i):
+        cin = CONV_SPECS[j][0]
+        h //= POOL_AFTER.get(j, 1)
+    cout, (kh, kw) = CONV_SPECS[i]
+    t = frames if same else frames + 2 * (kw // 2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(batch, cin, h, t, device="cuda", generator=gen)
+    w = torch.randn(cout, cin, kh, kw, device="cuda", generator=gen) * math.sqrt(2.0 / (cin * kh * kw))
+    b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+    return x, w, b, ((kh // 2, kw // 2) if same else (kh // 2, 0))
+
+
+def phase_conv(stats: dict) -> None:
+    """The encoders' conv kernel against a float64 conv on the card, at each
+    conv and CONV_SHAPES shape: within the rounding bound of a float32 FFMA
+    chain of its taps (each output's error at most (taps + 1) u times the
+    float64 conv of |x| and |w| plus |b|), the same bits twice, and its times
+    beside the card's bound, the plain version (F.conv2d as the port called
+    it before the kernel) and cuDNN's own pick per shape (benchmark mode,
+    set here only)."""
+    from zeronotesamba_torch.ops.cuda import conv_kernel as ck
+
+    totals = {}
+    for s, (shape, batch, frames, same) in enumerate(CONV_SHAPES):
+        for i in range(8):
+            x, w, b, padding = _conv_inputs(i, batch, frames, same, seed=10 * i + s)
+            cout, cin, kh, kw = w.shape
+            wt = ck.kernel_weights(w)
+            y = ck.launch(x, wt, b, padding)
+            y2 = ck.launch(x, wt, b, padding)
+            plain = ck.conv2d_plain(x, w, b, padding)
+            ref = F.conv2d(x.double(), w.double(), b.double(), padding=padding)
+            scale = F.conv2d(x.double().abs(), w.double().abs(), b.double().abs(), padding=padding)
+            torch.cuda.synchronize()
+            check(torch.equal(y, y2), f"conv {i + 1} ({shape}): two runs differ")
+            err = (y.double() - ref).abs()
+            ratio = (err / (scale * (cin * kh * kw + 1) * CONV_ROUNDING)).max().item()
+            check(y.shape == ref.shape and ratio <= 1.0,
+                  f"conv {i + 1} ({shape}): error {ratio} of the float32 rounding bound")
+            flops = 2.0 * y.numel() * cin * kh * kw
+            n = max(2, min(20, int(2e10 / flops)))
+            tiles = ck._tiles(torch.cuda.current_device(), batch, cin, cout, kh, kw, *y.shape[2:])
+            times = dict(ms=device_ms(lambda: ck.launch(x, wt, b, padding), n=n, reps=3),
+                         wrapper_ms=device_ms(lambda: ck.conv2d(x, w, b, padding), n=n, reps=3),
+                         plain_ms=device_ms(lambda: ck.conv2d_plain(x, w, b, padding), n=n, reps=3))
+            torch.backends.cudnn.benchmark = True
+            try:
+                times["library_ms"] = device_ms(lambda: F.conv2d(x, w, b, padding=padding), n=n, reps=3)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            bound_ms, bound_by = bound(4.0 * (x.numel() + w.numel() + y.numel()), flops)
+            row = dict(conv=i + 1, shape=shape, batch=batch, cin=cin, cout=cout, h=x.shape[2], t=x.shape[3],
+                       kernel=[kh, kw], padding=list(padding), tiles=tiles._asdict(), bound_ms=bound_ms,
+                       bound_by=bound_by, **times, fp32_peak_share=bound_ms / times["ms"],
+                       max_abs_err_f64=err.max().item(), rounding_bound_share=ratio,
+                       max_abs_diff_plain=(y - plain).abs().max().item(), bitwise_repeat=True)
+            emit("conv", **row)
+            tot = totals.setdefault(shape, dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                                 bound_ms=0.0))
+            for k in tot:
+                tot[k] += row[k]
+            stats["conv"]["max_abs_err"] = max(stats["conv"]["max_abs_err"], row["max_abs_err_f64"])
+            del x, w, b, wt, y, y2, plain, ref, scale, err
+        torch.cuda.empty_cache()
+    for shape, tot in totals.items():
+        emit("conv", part="sum", shape=shape, **tot, fp32_peak_share=tot["bound_ms"] / tot["ms"])
+    # One stream's eight convs at the song's shape for the kernels summary.
+    stats["conv"].update(totals["song"], bound_by="operations")
+
+
 def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
     check(len(a) == len(b), f"{what}: {len(a)} beats vs {len(b)}")
     if len(a):
@@ -528,6 +618,10 @@ def phase_main_path(stats: dict, trace: bool) -> None:
     check(dbn_backend == "native", f"main path DBN backend {backends}, expected one native decode")
     stats["cascade"]["launches"] = launches["cascade"]
     stats["octave"]["launches"] = launches["octave"]
+    # Eight encoder convs a stream, two streams, each one conv kernel launch.
+    conv_launches = _counted("conv_launch.", before)
+    check(conv_launches == {"fprop": 16}, f"main path conv launches {conv_launches}")
+    stats["conv"]["launches"] = conv_launches["fprop"]
 
     t0 = time.perf_counter()
     gpu.track_signal(sig, separation="hpss", decoder="dbn")
@@ -575,7 +669,8 @@ def phase_main_path(stats: dict, trace: bool) -> None:
     check(payload["n_frames"] == ref.fused_pulse.shape[0], "CLI n_frames")
     _beats_match(np.asarray(payload["beat_times"]), ref.beat_times, "CLI vs in-process")
 
-    emit("main_path", clip_s=30.0, n_frames=n_frames, launches=launches, dbn_backend=dbn_backend,
+    emit("main_path", clip_s=30.0, n_frames=n_frames, launches=launches, conv_launches=conv_launches,
+         dbn_backend=dbn_backend,
          max_abs_err_card_vs_cpu=errs, n_beats=len(res_g.beat_times), librosa_n_beats=len(lib_g),
          old_school_f1=old_school_f1, card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
          card_breakdown=_stage_breakdown(gpu, sig, trace),
@@ -2439,6 +2534,7 @@ def main() -> None:
     phase_build()
     stats = {k: {"max_abs_err": 0.0} for k in KERNEL_SOURCES}
     phase_kernels(stats, args.trace)
+    phase_conv(stats)
     pulse = phase_main_path(stats, args.trace)
     phase_decode(stats, pulse)
     phase_throughput()

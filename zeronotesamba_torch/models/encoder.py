@@ -17,9 +17,12 @@ JAX choices kept: the fixed input standardization ``(x + 6) / 5``
 (``INPUT_MEAN``, ``INPUT_STD``), He-normal init by default
 (``weight_init="torch"`` for the torch default), the conv -> pool -> ReLU ->
 dropout order, float32 output, and ``compute_dtype`` float32 by default
-(bfloat16 as an option). On the float32 path the caller
-turns TF32 off (device.disable_tf32), or cuDNN runs the convs in TF32.
-The convs stay cuDNN, as the JAX package left them to XLA.
+(bfloat16 as an option). A float32 conv goes through
+``ops/cuda/conv_kernel.conv2d``: on a card its forward is the port's own
+kernel (csrc/conv_fprop.cu, float32 FFMA) and its backward cuDNN's, on the
+CPU it is ``F.conv2d``. A bfloat16 conv is ``F.conv2d`` (cuDNN on a card).
+The JAX package leaves the convs to XLA. On the float32 path the caller
+turns TF32 off (device.disable_tf32), or cuDNN runs the backward in TF32.
 
 Dropout in training mode is Flax's: each cell is kept with probability
 1 - rate and scaled by 1 / (1 - rate). Its mask is drawn from the
@@ -45,6 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from zeronotesamba_torch.ops.cuda import conv_kernel
 from zeronotesamba_torch.parallel import sequence, tensor
 
 CONV_SPECS: Sequence[Tuple[int, Tuple[int, int]]] = (
@@ -83,6 +87,14 @@ def fan_in_truncated_normal_(w: torch.Tensor, scale: float, generator: torch.Gen
         z[out] = redraw
         out = out[redraw.abs() > 2.0]
     w.copy_(z.view(w.shape) * std)
+
+
+def conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, padding: Tuple[int, int]) -> torch.Tensor:
+    """One encoder conv at stride 1: float32 through the port's conv
+    (``conv_kernel.conv2d``), any other dtype through ``F.conv2d``."""
+    if h.dtype == torch.float32:
+        return conv_kernel.conv2d(h, w, b, padding)
+    return F.conv2d(h, w, b, padding=padding)
 
 
 def _torch_uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator | None) -> None:
@@ -144,13 +156,13 @@ class Encoder(nn.Module):
         conv = getattr(self, f"cv{i + 1}")
         w, b = conv.weight.to(h.dtype), conv.bias.to(h.dtype)
         if mesh is None:
-            return F.conv2d(h, w, b, padding=conv.padding)
+            return conv2d(h, w, b, conv.padding)
         if w.shape[0] * mesh.shape["model"] != CONV_SPECS[i][0]:
             raise ValueError(f"cv{i + 1} holds {w.shape[0]} output channels on a model axis of "
                              f"{mesh.shape['model']}: shard the parameters with shard_params_tp")
         kh, kw = conv.kernel_size
         h = sequence.exchange_halo(tensor.replicated_input(h, mesh), kw // 2, mesh)
-        return F.conv2d(h, w, b, padding=(kh // 2, 0))
+        return conv2d(h, w, b, (kh // 2, 0))
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
         if x.ndim != 4 or x.shape[1] != 1:
@@ -238,7 +250,7 @@ class FusedDownstream(nn.Module):
     ``freq_s2d`` is accepted as the JAX model takes it and has no effect: it
     names convs the JAX package computes through an exact frequency
     space-to-depth fold, a TPU matrix-unit schedule whose outputs equal the
-    plain conv's. Here every conv is a plain cuDNN conv.
+    plain conv's. Here every conv is a plain conv (``conv2d``).
     """
 
     def __init__(self, reduction: str = "max", dropout_rate: float = 0.1,
