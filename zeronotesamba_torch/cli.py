@@ -191,13 +191,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_tracking(p: argparse.ArgumentParser) -> None:
-    """The separation, decoder and device flags of infer and track-dir."""
-    p.add_argument("--separation", default="hpss", choices=["hpss", "stems", "learned", "mix"])
+    """The model, separation, decoder and device flags of infer and track-dir."""
+    p.add_argument("--model", default="down_cnn", choices=["down_cnn", "beat_this"],
+                   help="down_cnn: the fused Down_CNN; beat_this: Beat This! on the mix (--params: a .ckpt "
+                        "in the source's key names)")
+    p.add_argument("--separation", default=None, choices=["hpss", "stems", "learned", "mix", "none"],
+                   help="default hpss (down_cnn), none (beat_this, which takes no other)")
     p.add_argument("--sep-model", default=None,
                    help="mask-net params for --separation learned, an .npz of its Flax tree "
                         "(default: the shipped zeronotesamba_torch/assets/separator.npz)")
-    p.add_argument("--decoder", default="dbn", choices=["dbn", "librosa", "threshold"])
+    p.add_argument("--decoder", default=None, choices=["dbn", "librosa", "threshold", "peaks"],
+                   help="default dbn (down_cnn), peaks (beat_this, which takes no other)")
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+
+def _tracker(args) -> tuple:
+    """The --model's tracker (``infer.TRACKERS``) on --params, and its
+    track_file arguments: the tracker's ``TRACK_DEFAULTS``, each flag given
+    over its default."""
+    from zeronotesamba_torch.infer import TRACKERS
+
+    cls = TRACKERS[args.model]
+    tracker = cls(cls.load_file(args.params) if args.params else None, device=args.device)
+    return tracker, {k: v if getattr(args, k) is None else getattr(args, k) for k, v in cls.TRACK_DEFAULTS.items()}
 
 
 def main(argv=None):
@@ -374,15 +390,8 @@ def main(argv=None):
         print(json.dumps(table, indent=2))
 
     elif args.cmd == "infer":
-        from zeronotesamba_torch.infer import BeatTracker
-
-        tracker = BeatTracker(_load_params(args.params), device=args.device)
-        res = tracker.track_file(args.audio, separation=args.separation, decoder=args.decoder,
-                                 sep_model=_sep_model(args))
-        payload = {
-            "n_frames": int(res.fused_pulse.shape[0]),
-            "beat_times": [float(t) for t in (res.beat_times if res.beat_times is not None else [])],
-        }
+        tracker, kw = _tracker(args)
+        payload = tracker.track_file(args.audio, **kw).to_json()
         print(json.dumps(payload))
         _dump(args.out, payload)
 
@@ -409,17 +418,13 @@ def main(argv=None):
     elif args.cmd == "track-dir":
         import os
 
-        from zeronotesamba_torch.infer import BeatTracker
-
-        tracker = BeatTracker(_load_params(args.params), device=args.device)
+        tracker, kw = _tracker(args)
         results = {}
         for f in sorted(os.listdir(args.audio_dir)):
             if not f.endswith(".wav"):
                 continue
             try:
-                res = tracker.track_file(os.path.join(args.audio_dir, f), separation=args.separation,
-                                         decoder=args.decoder,
-                                         sep_model=_sep_model(args))
+                res = tracker.track_file(os.path.join(args.audio_dir, f), **kw)
                 results[f] = [float(t) for t in res.beat_times]
             except (ValueError, OSError) as e:
                 results[f] = {"error": str(e)}
@@ -476,15 +481,6 @@ def _pretext(mesh, args):
         if mesh is not None:
             out["ranks"] = mesh.size
         print(json.dumps(out), flush=True)
-
-
-def _sep_model(args):
-    """The mask-net params of --separation learned: --sep-model, or the shipped npz."""
-    if args.separation != "learned":
-        return None
-    from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
-
-    return args.sep_model or SEPARATOR_NPZ
 
 
 def _load_params(path):

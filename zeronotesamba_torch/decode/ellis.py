@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from zeronotesamba_torch.ops.mel import hz_to_mel, mel_to_hz
+
 
 def estimate_tempo(
     onset_env: np.ndarray,
@@ -158,27 +160,10 @@ def onset_strength(
     return flux
 
 
-def _hz_to_mel(f):
-    """Slaney-style mel scale (librosa default)."""
-    f = np.asarray(f, dtype=np.float64)
-    mel = f / (200.0 / 3)
-    log_region = f >= 1000.0
-    mel = np.where(log_region, 15.0 + np.log(np.maximum(f, 1e-9) / 1000.0) / (np.log(6.4) / 27.0), mel)
-    return mel
-
-
-def _mel_to_hz(m):
-    m = np.asarray(m, dtype=np.float64)
-    f = m * (200.0 / 3)
-    log_region = m >= 15.0
-    f = np.where(log_region, 1000.0 * np.exp((m - 15.0) * (np.log(6.4) / 27.0)), f)
-    return f
-
-
 def _mel_filterbank(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
     fmax = sr / 2.0
-    mels = np.linspace(_hz_to_mel(0.0), _hz_to_mel(fmax), n_mels + 2)
-    freqs = _mel_to_hz(mels)
+    mels = np.linspace(hz_to_mel(0.0), hz_to_mel(fmax), n_mels + 2)
+    freqs = mel_to_hz(mels)
     fft_freqs = np.linspace(0, fmax, n_fft // 2 + 1)
     fb = np.zeros((n_mels, len(fft_freqs)))
     for i in range(n_mels):

@@ -20,6 +20,12 @@ A ``BockTCN`` tree (``front1``.., ``tcn_d{d}``, ``head``) keeps its Flax
 names (``bock_state_dict_from_jax``). A ``MaskNet`` tree (``Conv_0``..
 ``Conv_5``) maps onto ``convs.0``..``convs.5`` (``separator_state_dict_from_jax``).
 
+A Beat This! state dict (CPJKU beat_this) keeps the source's names
+(``frontend.stem.conv2d.weight``, ``transformer_blocks.layers.0.0.to_qkv.weight``,
+...; ``load_beat_this_state_dict``): a published checkpoint's
+``state_dict``, whose keys start ``model.`` (and ``_orig_mod.`` after
+``torch.compile``), loads once those prefixes are cut.
+
 A Flax tree on disk is an ``.npz`` of its leaves under their key paths
 joined by ``/`` (``params/Conv_0/kernel``, ...), float32: what the exporter
 in tests/test_torch_separator_export.py writes from an orbax checkpoint, and
@@ -166,6 +172,43 @@ def unflatten_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[name] = leaf
     return tree
+
+
+BEAT_THIS_PREFIXES = ("model.", "_orig_mod.")
+
+
+def load_beat_this_state_dict(weights: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Beat This! state dict in the source's key names -> the port
+    ``BeatThis``'s: a checkpoint's ``state_dict`` entry taken, the prefixes
+    ``model.`` and ``_orig_mod.`` cut, the rotary embedding's stored
+    frequencies checked against the port's and dropped (the port computes
+    them), BatchNorm's ``num_batches_tracked`` added where missing."""
+    from zeronotesamba_torch.models.beat_this import Rotary
+
+    if "state_dict" in weights and isinstance(weights["state_dict"], Mapping):
+        weights = weights["state_dict"]
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in weights.items():
+        for prefix in BEAT_THIS_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+        sd[key] = torch.as_tensor(value)
+    for key in [k for k in sd if k.endswith("rotary_embed.freqs")]:
+        freqs = sd.pop(key).double()
+        expected = Rotary(2 * freqs.numel()).inv_freq()
+        if not torch.allclose(freqs, expected, rtol=1e-6, atol=0.0):
+            raise ValueError(f"{key}: rotary frequencies differ from theta 10,000 over {2 * freqs.numel()} dims")
+    for key in [k for k in sd if k.endswith(".running_var")]:
+        sd.setdefault(key[: -len("running_var")] + "num_batches_tracked", torch.tensor(0))
+    return sd
+
+
+def load_beat_this_file(path: str) -> Dict[str, torch.Tensor]:
+    """A Beat This! checkpoint (``.ckpt``, as published) -> the port
+    ``BeatThis``'s state dict (``load_beat_this_state_dict``)."""
+    if not path.endswith(".ckpt"):
+        raise ValueError(f"{path}: expected a .ckpt Beat This! checkpoint")
+    return load_beat_this_state_dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
