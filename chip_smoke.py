@@ -177,6 +177,7 @@ ONLINE_F1_MIN = 0.9  # online vs offline DBN on the clean activations (tests/tes
 # The decode phase's evaluation set: GTZAN's 1,000 30 s excerpts as one batch.
 DECODE_CORPUS_SONGS, DECODE_CORPUS_FRAMES, DECODE_CORPUS_SEED = 1000, 1876, 0
 VITERBI_THREADS = (64, 128, 256, 512)  # the Viterbi kernel's block sizes timed at each decode shape
+VITERBI_THREADS_F64 = (64, 128, 256, 384)  # and its float64 instance's (at most 384)
 SEP_LR = 1e-3  # the separator step parity's Adam lr
 # The shipped separator's mean SI-SDR (dB, drums and rest) on
 # synth_bank(8, 12.0, 999), and HPSS's, from the JAX package on a CPU: the
@@ -568,11 +569,13 @@ def _stage_breakdown(tracker, sig: np.ndarray, trace: bool, separation: str = "h
         vqts, out["log_vqt_s"] = timed(lambda: best_log_xqt(
             torch.as_tensor(np.stack([anc, pos]), device=tracker.device), XQTParams()))
         fused, out["encoders_s"] = timed(lambda: tracker.model(vqts[0:1, None], vqts[1:2, None]).cpu().numpy()[0])
-    # The DBN as track_signal runs it (native C++), and the numpy Viterbi on
-    # the same pulse: the same beats.
-    native, out["dbn_decode_s"] = timed(lambda: decode(fused, "dbn"))
+    # The DBN as track_signal runs it (its forward pass on the card), the
+    # native C++ and the numpy Viterbi on the same pulse: the same beats.
+    card, out["dbn_decode_s"] = timed(lambda: decode(fused, "dbn", device=tracker.device))
+    native, out["dbn_decode_native_s"] = timed(lambda: decode(fused, "dbn"))
     plain, out["dbn_decode_numpy_s"] = timed(lambda: decode_beats(fused, use_native=False))
     check(np.array_equal(native, plain), "native and numpy DBN beats differ on the main path's pulse")
+    check(np.array_equal(card, native), "card and native DBN beats differ on the main path's pulse")
     if not trace:
         return out
     from torch.profiler import ProfilerActivity, profile
@@ -612,10 +615,10 @@ def phase_main_path(stats: dict, trace: bool) -> None:
     launches = {**_counted("vqt_launch.", before), **_counted("dbn_launch.", before)}
     backends = _counted("dbn.", before)
     # One log_xqt_fused call per track_signal: one cascade and one octave
-    # launch; the DBN decodes one song on the host, in C++.
-    check(launches == {"cascade": 1, "octave": 1, "viterbi": 0}, f"main path launches {launches}")
-    dbn_backend = "native" if backends == {"native": 1, "numpy": 0} else f"not native: {backends}"
-    check(dbn_backend == "native", f"main path DBN backend {backends}, expected one native decode")
+    # launch; the DBN's forward pass runs on the card, one float64 launch.
+    check(launches == {"cascade": 1, "octave": 1, "viterbi": 1}, f"main path launches {launches}")
+    dbn_backend = "device" if backends == {"native": 0, "numpy": 0, "device": 1} else f"not device: {backends}"
+    check(dbn_backend == "device", f"main path DBN backend {backends}, expected one device decode")
     stats["cascade"]["launches"] = launches["cascade"]
     stats["octave"]["launches"] = launches["octave"]
     # Eight encoder convs a stream, two streams, each one conv kernel launch.
@@ -1243,11 +1246,13 @@ def _decode_corpus(pulse: np.ndarray, gold):
     return names, acts, [len(a) for a in songs]
 
 
-def _viterbi_timed(stats: dict, shape: str, acts: np.ndarray, lengths: list) -> dict:
-    """The Viterbi kernel on one padded batch: against its plain version on
-    the card (all three outputs equal), its device time at each block size
-    (the default's is ``kernel_ms``), the plain version's time (once) and
-    the card's bound. Launches here are not counted against the path."""
+def _viterbi_timed(stats: dict, shape: str, acts: np.ndarray, lengths: list, dtype=torch.float32) -> dict:
+    """The Viterbi kernel's instance for scores of ``dtype`` on one padded
+    batch: against its plain version on the card (all three outputs equal),
+    its device time at each block size it takes (the default's is
+    ``kernel_ms``), the plain version's time (once) and the card's bound
+    (float64 at half the float32 peak). Launches here are not counted
+    against the path."""
     from zeronotesamba_torch.decode import dbn_device
     from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig
     from zeronotesamba_torch.ops.cuda import dbn_kernel
@@ -1256,8 +1261,10 @@ def _viterbi_timed(stats: dict, shape: str, acts: np.ndarray, lengths: list) -> 
     masked = acts.copy()
     for b, nf in enumerate(lengths):
         masked[b, nf:] = 0.0
-    la, lna = (torch.tensor(x.astype(np.float32), device="cuda") for x in dbn_device._observations(masked, cfg))
-    space = dbn_device._space(cfg, torch.device("cuda"))
+    score = 4 if dtype == torch.float32 else 8
+    la, lna = (torch.tensor(x.astype(np.float32 if score == 4 else np.float64), device="cuda")
+               for x in dbn_device._observations(masked, cfg))
+    space = dbn_device._space(cfg, torch.device("cuda"), dtype)
     got = dbn_kernel.viterbi_forward(la, lna, space)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1274,11 +1281,11 @@ def _viterbi_timed(stats: dict, shape: str, acts: np.ndarray, lengths: list) -> 
     batch, t_pad = acts.shape
     n_int, n_states = space.n_int, space.n_states
     threads_ms = {t: device_ms(lambda t=t: dbn_kernel._viterbi_forward_cuda(la, lna, space, threads=t), n=5, reps=3)
-                  for t in VITERBI_THREADS}
+                  for t in (VITERBI_THREADS if score == 4 else VITERBI_THREADS_F64)}
     ms = device_ms(lambda: dbn_kernel.viterbi_forward(la, lna, space), n=5, reps=3)
-    nbytes = 4.0 * 2 * batch * t_pad + 4.0 * n_int * n_int + 8.0 * n_int + n_states \
-        + 2.0 * batch * t_pad * n_int + 4.0 * batch * t_pad + 4.0 * batch * n_states
-    b_ms, b_by = bound(nbytes, 2.0 * (n_int * n_int + n_states) * batch * t_pad)
+    nbytes = score * 2.0 * batch * t_pad + score * n_int * n_int + 8.0 * n_int + n_states \
+        + 2.0 * batch * t_pad * n_int + 4.0 * batch * t_pad + score * batch * n_states
+    b_ms, b_by = bound(nbytes, score / 4 * 2.0 * (n_int * n_int + n_states) * batch * t_pad)
     row = dict(shape=shape, batch=batch, t_pad=t_pad, frames_per_round=space.frames_per_round, kernel_ms=ms,
                us_per_frame=ms * 1e3 / t_pad, threads_ms=threads_ms, plain_ms=plain_s * 1e3, bound_ms=b_ms,
                bound_by=b_by, max_abs_err_v_final=err)
@@ -1384,6 +1391,12 @@ def phase_decode(stats: dict, pulse: np.ndarray) -> None:
     emit("decode", **row, launches={"viterbi": 1}, serial_frames=row["t_pad"],
          host_s_per_song=dict(host, native=secs), songs={"main_path_pulse": dict(
              frames=act.size, beats=len(native), device_equal=same, beats_not_shared=diff)})
+    # The same song in float64, as track_signal decodes it on the card.
+    row = _viterbi_timed(stats, f"1x{act.size}_f64", act[None], [act.size], torch.float64)
+    t0 = time.perf_counter()
+    beats = decode_beats(act, cfg, device="cuda")
+    check(np.array_equal(beats, native), "main_path_pulse: float64 device beats differ from the native DBN's")
+    emit("decode", **row, serial_frames=row["t_pad"], host_s_per_song=dict(decode=time.perf_counter() - t0))
 
     # 1,000 x 1,876: an evaluation set of ragged 30 s songs.
     names, acts, lengths = _decode_corpus(pulse, gold)
@@ -1729,7 +1742,7 @@ def _separator_serving(stats: dict, trace: bool) -> None:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = {**_counted("vqt_launch.", before), **_counted("dbn_launch.", before)}
-    check(launches == {"cascade": 1, "octave": 1, "viterbi": 0}, f"learned path launches {launches}")
+    check(launches == {"cascade": 1, "octave": 1, "viterbi": 1}, f"learned path launches {launches}")
     for kname, n in launches.items():
         stats[kname]["learned_path_launches"] = n
     t0 = time.perf_counter()
@@ -1817,7 +1830,8 @@ def _json_leaves(doc, path=""):
 def _suite_run(stats: dict) -> str:
     """run_demo_suite at SUITE's size on the card, with the kernel launches
     of the whole run counted: one cascade and one octave launch per
-    generate_xqt call, three a corpus song; no Viterbi launch."""
+    generate_xqt call, three a corpus song; one Viterbi launch a DBN decode
+    on the card (the experiments' scored validation and test passes)."""
     import glob
     import shutil
 
@@ -1832,9 +1846,11 @@ def _suite_run(stats: dict) -> str:
     summary = run_demo_suite(cfg, device="cuda")
     secs = time.perf_counter() - t0
     launches = {**_counted("vqt_launch.", before), **_counted("dbn_launch.", before)}
+    decodes = _counted("dbn.", before)["device"]
     songs = cfg.n_songs + cfg.n_songs_b + cfg.pretext_songs + cfg.proxy_songs
-    check(launches == {"cascade": 3 * songs, "octave": 3 * songs, "viterbi": 0},
-          f"suite launches {launches}, expected {3 * songs} of each VQT kernel (3 a corpus song)")
+    check(launches == {"cascade": 3 * songs, "octave": 3 * songs, "viterbi": decodes},
+          f"suite launches {launches}, expected {3 * songs} of each VQT kernel (3 a corpus song) "
+          f"and {decodes} Viterbi launches (one a DBN decode on the card)")
     for kname, n in launches.items():
         stats[kname]["suite_launches"] = n
     for ckpt in glob.glob(os.path.join(out_dir, "*.pth")):  # the pretext twin's weights, ~100 MB each

@@ -14,7 +14,8 @@ largest, parameters 2 lr plus their float32 rounding; the staged pretext
 step at k = 2 card vs CPU at the same tolerances (its gradients with the
 CPU's max-pool and ReLU decisions replayed on the card); the staged step
 on a one-rank NCCL mesh against the single-device step within 1e-7; the batched DBN
-Viterbi kernel equal to its plain version bit for bit, and the device
+Viterbi kernel equal to its plain version bit for bit in float32 and in
+float64, the float64 path equal to the host C++ DBN's, and the device
 decode's beats equal to the float64 DBN's on clean golden activations; a
 K-step call as one CUDA graph equal to K eager steps bit for bit (cuDNN
 deterministic), also after a resume.
@@ -289,6 +290,84 @@ def test_viterbi_kernel_on_short_chains(cuda, lengths, n_frames):
     assert space.frames_per_round == min(lengths)
     la, lna = (torch.tensor(x, device=cuda) for x in _grid_obs(np.random.default_rng(n_frames), 3, n_frames))
     _viterbi_equal_on_card(la, lna, space)
+
+
+def _f64_equal_on_card(act, cuda, threads=0):
+    """The float64 kernel on one song's observations: its final scores, tempo
+    choices and best states equal its plain version's on the card, and the
+    path of the decode as track_signal runs it equals the host C++'s."""
+    from zeronotesamba_torch.decode import dbn_device, dbn_native
+    from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, _state_space
+
+    cfg = DBNBeatDecoderConfig()
+    intervals, firsts, lasts, _, _, log_trans, is_beat = _state_space(cfg)
+    la, lna = dbn_device._observations(np.asarray(act, np.float64), cfg)
+    space = dbn_device._space(cfg, cuda, torch.float64)
+    _viterbi_equal_on_card(*(torch.tensor(x[None], device=cuda) for x in (la, lna)), space, threads)
+    np.testing.assert_array_equal(dbn_device.viterbi_path_f64(la, lna, cfg, device=cuda),
+                                  dbn_native.viterbi_native(la, lna, intervals, log_trans, is_beat, firsts, lasts))
+
+
+@pytest.mark.parametrize("name", ["random", "bpm60", "bpm120", "bpm200", "zeros", "constant", "one_frame",
+                                  "frames16", "frames35", "frames103", "track_signal"])
+def test_viterbi_f64_kernel_matches_plain_and_the_host_dbn(cuda, name):
+    """The float64 instance on the CPU tests' cases (tests/test_torch_viterbi_rounds.F64_CASES;
+    the 30 s random song also at 64 and 256 threads) and on 20 seeded 30 s
+    click tracks' fused pulses from track_signal: bit for bit its plain
+    version, and the host C++ DBN's path."""
+    from test_torch_viterbi_rounds import f64_case
+
+    if name != "track_signal":
+        _f64_equal_on_card(f64_case(name), cuda)
+        if name == "random":
+            for threads in (64, 256):
+                _f64_equal_on_card(f64_case(name), cuda, threads)
+        return
+    tracker = BeatTracker(seed=0, device="cuda")
+    for k in range(20):
+        sig, _ = click_track(30.0, 60.0 + 7.0 * k, seed=100 + k)
+        _f64_equal_on_card(tracker.track_signal(sig, decoder=None).fused_pulse, cuda)
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 7, 41, 300])
+@pytest.mark.parametrize("lengths", [(3, 1, 4, 2), (2, 5, 3, 2), (4, 3, 6, 5)])
+def test_viterbi_f64_kernel_on_short_chains(cuda, lengths, n_frames):
+    """The float64 instance on the hand-made spaces (R = 1, 2, 3; ties and
+    -inf tempo columns): equal to its plain version bit for bit."""
+    from test_torch_viterbi_rounds import _grid_obs, _hand_space
+
+    from zeronotesamba_torch.ops.cuda import dbn_kernel
+
+    space = _hand_space(lengths, seed=sum(lengths) + n_frames, dtype=torch.float64)
+    space = dbn_kernel.viterbi_space(space.log_trans.numpy(), space.firsts.numpy(), space.lasts.numpy(),
+                                     space.is_beat.numpy(), cuda, torch.float64)
+    la, lna = (torch.tensor(x, device=cuda)
+               for x in _grid_obs(np.random.default_rng(n_frames), 3, n_frames, np.float64))
+    _viterbi_equal_on_card(la, lna, space)
+
+
+def test_track_signal_decodes_on_the_card(cuda):
+    """track_signal on a card runs the DBN's forward pass there: one float64
+    launch and one dbn.device decode a song, no native one, and the beats of
+    the host C++ DBN on the same pulse; one upload of the observations and
+    one download of the tempo choices more than the song's own copies."""
+    from zeronotesamba_torch.decode import decode_beats
+
+    sig, _ = click_track(30.0, 120.0, seed=7)
+    tracker = BeatTracker(seed=0, device="cuda")
+    tracker.track_signal(sig)  # warm: builds, plans
+    before = profiling.totals()
+    res = tracker.track_signal(sig, separation="hpss", decoder="dbn")
+    after = profiling.totals()
+    moved = {k: after[k] - before.get(k, 0) for k in ("dbn.device", "dbn.native", "dbn.numpy", "dbn_launch.viterbi")}
+    assert moved == {"dbn.device": 1, "dbn.native": 0, "dbn.numpy": 0, "dbn_launch.viterbi": 1}
+    plain = tracker.track_signal(sig, separation="hpss", decoder=None)
+    after_plain = profiling.totals()
+    assert after["d2h_syncs"] - before["d2h_syncs"] == after_plain["d2h_syncs"] - after["d2h_syncs"] + 1
+    assert after["h2d_bytes"] - before["h2d_bytes"] == \
+        after_plain["h2d_bytes"] - after["h2d_bytes"] + 2 * 8 * res.fused_pulse.size
+    assert res.beat_times.size > 0
+    np.testing.assert_array_equal(res.beat_times, decode_beats(res.fused_pulse))
 
 
 def test_decode_beats_device_matches_decode_beats(cuda):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_viterbi_rounds import F64_CASES, f64_case
 
 from zeronotesamba_tpu.decode import decode as j_decode
 from zeronotesamba_tpu.decode import dbn_jax as jdev
@@ -111,7 +112,9 @@ def test_decode_beats_counts_its_backend():
     decode_beats(act)
     decode_beats(act, use_native=False)
     decode(act, "dbn")
-    assert profiling.totals("dbn.") == {"native": before["native"] + 2, "numpy": before["numpy"] + 1}
+    decode(act, "dbn", device="cpu")  # a caller on the CPU decodes on the host
+    assert profiling.totals("dbn.") == {"native": before["native"] + 3, "numpy": before["numpy"] + 1,
+                                        "device": before["device"]}
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):
@@ -122,6 +125,35 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="compiler"):
         decode_beats(_pulse(120, 4.0))
     assert decode_beats(_pulse(120, 4.0), use_native=False).size > 0
+
+
+@pytest.mark.parametrize("name", F64_CASES)
+def test_float64_forward_and_native_backtrack_equal_the_host_dbn(name):
+    """The offline DBN as a card runs it (decode_beats with a CUDA device),
+    with the kernel's plain float64 version in the kernel's place: the
+    observations decode_beats computes, the float64 forward pass, the best
+    final state and the C++ backtrack give viterbi_native's path, and the
+    beats decode_beats's, bit for bit."""
+    act = f64_case(name)
+    cfg = DBNBeatDecoderConfig()
+    intervals, firsts, lasts, _, _, log_trans, is_beat = dbn_mod._state_space(cfg)
+    la, lna = _observations(act, cfg)
+    path = dbn_device.viterbi_path_f64(la, lna, cfg, device="cpu")
+    np.testing.assert_array_equal(path, dbn_native.viterbi_native(la, lna, intervals, log_trans, is_beat, firsts,
+                                                                  lasts))
+    for correct in (True, False):
+        c = DBNBeatDecoderConfig(correct=correct)
+        np.testing.assert_array_equal(dbn_device._beats(path, act, c), decode_beats(act, c))
+
+
+def test_native_backtrack_checks_its_inputs():
+    _, firsts, lasts, _, _, _, is_beat = dbn_mod._state_space(DBNBeatDecoderConfig())
+    fc = np.zeros((4, firsts.size), np.int16)
+    assert dbn_native.backtrack_native(fc, 5, firsts, lasts, is_beat.size).tolist() == [2, 3, 4, 5]
+    with pytest.raises(ValueError):
+        dbn_native.backtrack_native(fc, is_beat.size, firsts, lasts, is_beat.size)
+    with pytest.raises(ValueError):
+        dbn_native.backtrack_native(fc[:, 1:], 5, firsts, lasts, is_beat.size)
 
 
 # --------------------------------------------------------------------------

@@ -117,7 +117,7 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
-    """Every CUDA source, the native DBN's C++ source and the shipped
+    """Every CUDA source and header, the native DBN's C++ source and the shipped
     separator's weights are declared package data, and a copy that lacks a
     source says so before it tries to build."""
     import tomllib
@@ -128,7 +128,7 @@ def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
 
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
         data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["zeronotesamba_torch"]
-    assert data == ["csrc/*.cu", "csrc/*.cpp", "assets/*.npz"]
+    assert data == ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp", "assets/*.npz"]
     assert os.path.relpath(SEPARATOR_NPZ, PKG) == os.path.join("assets", "separator.npz") and os.path.isfile(SEPARATOR_NPZ)
     assert all((build.CSRC / f"{name}.cu").is_file() for name in build.SOURCES)
     assert dbn_native.SOURCE.is_file() and dbn_native.SOURCE.parent == build.CSRC

@@ -20,7 +20,36 @@
 
 extern "C" {
 
-// Returns 0 on success. Outputs:
+// The state path from state `start` at the last frame back to the first:
+// a first state of a chain steps to the last state of the chain that
+// first_choice[t] names, any other state to the one before it. Shared by
+// dbn_viterbi and the forward pass on a card (decode/dbn_device.py).
+void dbn_backtrack(
+    const int16_t* first_choice,  // [T * n_int] the tempo choice into each chain's first state
+    int64_t T,
+    int64_t n_int,
+    int64_t n_states,
+    const int64_t* firsts,        // [n_int]
+    const int64_t* lasts,         // [n_int]
+    int64_t start,                // the state at frame T - 1
+    int64_t* path)                // [T] out
+{
+    // first-state lookup: map state -> interval index if first else -1
+    std::vector<int32_t> first_of(n_states, -1);
+    for (int64_t i = 0; i < n_int; ++i) first_of[firsts[i]] = (int32_t)i;
+
+    int64_t s = start;
+    for (int64_t t = T - 1; t >= 0; --t) {
+        path[t] = s;
+        int32_t fi = first_of[s];
+        if (fi >= 0)
+            s = lasts[first_choice[(size_t)t * n_int + fi]];
+        else
+            s -= 1;
+    }
+}
+
+// Outputs:
 //   path[t]  : decoded state index per frame (int64, length T)
 void dbn_viterbi(
     const double* log_act,    // [T] log p(obs | beat state)
@@ -77,24 +106,12 @@ void dbn_viterbi(
         v.swap(v_new);
     }
 
-    // Backtrack.
+    // Backtrack from the first state with the largest final score.
     int64_t s = 0;
     double best = -INFINITY;
     for (int64_t i = 0; i < n_states; ++i)
         if (v[i] > best) { best = v[i]; s = i; }
-
-    // first-state lookup: map state -> interval index if first else -1
-    std::vector<int32_t> first_of(n_states, -1);
-    for (int64_t i = 0; i < n_int; ++i) first_of[firsts[i]] = (int32_t)i;
-
-    for (int64_t t = T - 1; t >= 0; --t) {
-        path[t] = s;
-        int32_t fi = first_of[s];
-        if (fi >= 0)
-            s = lasts[first_choice[(size_t)t * n_int + fi]];
-        else
-            s -= 1;
-    }
+    dbn_backtrack(first_choice.data(), T, n_int, n_states, firsts, lasts, s, path);
 }
 
 }  // extern "C"

@@ -3,7 +3,10 @@ batched on the card) and the online DBN."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
 
 from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, beat_activation_to_times, decode_beats
 from zeronotesamba_torch.decode.dbn_device import decode_beats_batch_device, decode_beats_device
@@ -18,11 +21,13 @@ def threshold_beats(activations: np.ndarray, thresh_val: float = 0.075, fps: flo
     return np.nonzero(act > thresh_val)[0] / fps
 
 
-def decode(activations: np.ndarray, method: str = "dbn", *, fps: float = 62.5, thresh_val: float = 0.075) -> np.ndarray:
-    """Dispatch on the reference's three decoder modes ('dbn'/'librosa'/'threshold')."""
+def decode(activations: np.ndarray, method: str = "dbn", *, fps: float = 62.5, thresh_val: float = 0.075,
+           device: Optional[str | torch.device] = None) -> np.ndarray:
+    """Dispatch on the reference's three decoder modes ('dbn'/'librosa'/'threshold').
+    ``device``: the caller's; on a card the DBN's forward pass runs there (decode_beats)."""
     with profiling.span("decode"):
         if method == "dbn":
-            return beat_activation_to_times(activations, fps=fps)
+            return beat_activation_to_times(activations, fps=fps, device=device)
         if method in ("librosa", "ellis"):
             return beat_track_dp(activations, fps=fps)
         if method == "threshold":

@@ -2,9 +2,11 @@
 
 The port's copy of zeronotesamba_tpu/decode/dbn.py. The Viterbi runs in C++
 (decode/dbn_native.py, the default, as in the JAX package) or in numpy
-(``use_native=False``); the two give the same path exactly. The batched
-Viterbi on the card is decode/dbn_device.py. The reference's headline
-numbers use madmom's DBNBeatTrackingProcessor with min_bpm=55, max_bpm=215,
+(``use_native=False``); the two give the same path exactly. For a caller on
+a card (``device`` a CUDA device) its forward pass runs there in float64
+(decode/dbn_device.viterbi_path_f64) and gives the C++'s path bit for bit.
+The batched float32 Viterbi on the card is decode/dbn_device.py. The
+reference's headline numbers use madmom's DBNBeatTrackingProcessor with min_bpm=55, max_bpm=215,
 transition_lambda=100, fps=62.5 (Krebs, Böck & Widmer, ISMIR 2015):
 
 - state space: one chain of ``tau`` position states per integer beat interval
@@ -23,14 +25,17 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
+import torch
 
 from zeronotesamba_torch.utils import profiling
 
 # Viterbi runs by backend (``profiling.totals("dbn.")``), so a caller can show which one decoded.
 profiling.count("dbn.native", 0)
 profiling.count("dbn.numpy", 0)
+profiling.count("dbn.device", 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +108,14 @@ def decode_beats(
     cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(),
     *,
     use_native: bool = True,
+    device: Optional[str | torch.device] = None,
 ) -> np.ndarray:
     """Beat times (seconds) from a per-frame beat activation in [0, 1].
 
-    ``use_native`` runs the Viterbi in C++ (built at first use; a failed
-    build raises), else in numpy."""
+    ``device`` is the caller's: on a CUDA device the Viterbi's forward pass
+    runs there in float64 and the C++ backtracks (the same path; a failed
+    build raises). Elsewhere ``use_native`` runs the Viterbi in C++ (built
+    at first use; a failed build raises), else in numpy."""
     act = np.asarray(activations, dtype=np.float64).ravel()
     if cfg.threshold:
         act = np.where(act >= cfg.threshold, act, 0.0)
@@ -119,14 +127,19 @@ def decode_beats(
     eps = np.spacing(1)
     log_act = np.log(act + eps)
     log_nact = np.log((1.0 - act) / (cfg.observation_lambda - 1) + eps)
+    on_card = device is not None and torch.device(device).type == "cuda"
     with profiling.span("decode.viterbi"):
-        if use_native:
+        if on_card:
+            from zeronotesamba_torch.decode.dbn_device import viterbi_path_f64
+
+            path = viterbi_path_f64(log_act, log_nact, cfg, device=device)
+        elif use_native:
             from zeronotesamba_torch.decode.dbn_native import viterbi_native
 
             path = viterbi_native(log_act, log_nact, intervals, log_trans, is_beat, firsts, lasts)
         else:
             path = _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_beat)
-    profiling.count("dbn.native" if use_native else "dbn.numpy")
+    profiling.count("dbn.device" if on_card else "dbn.native" if use_native else "dbn.numpy")
 
     beat_range = is_beat[path]
     if cfg.correct:
@@ -157,13 +170,15 @@ def beat_activation_to_times(
     max_bpm: float = 215.0,
     fps: float = 62.5,
     transition_lambda: float = 100.0,
+    device: Optional[str | torch.device] = None,
 ) -> np.ndarray:
     """Reference-parameterized DBN decode (evaluate.py:10 defaults), with the
-    reference's correct=True -> correct=False fallback semantics."""
+    reference's correct=True -> correct=False fallback semantics; ``device``
+    as in decode_beats."""
     cfg = DBNBeatDecoderConfig(
         min_bpm=min_bpm, max_bpm=max_bpm, fps=fps, transition_lambda=transition_lambda, correct=True
     )
     try:
-        return decode_beats(activations, cfg)
+        return decode_beats(activations, cfg, device=device)
     except Exception:
-        return decode_beats(activations, dataclasses.replace(cfg, correct=False))
+        return decode_beats(activations, dataclasses.replace(cfg, correct=False), device=device)

@@ -2,15 +2,20 @@
 
 Port of zeronotesamba_tpu/decode/dbn_jax.py. The forward max-product
 recursion of a whole padded batch runs in float32 on ``device``: one launch
-of csrc/dbn_viterbi.cu on a card, its plain PyTorch version on the CPU
+of csrc/dbn_viterbi.cuh's kernel on a card, its plain PyTorch version on the CPU
 (ops/cuda/dbn_kernel.py). Only the (T, n_intervals) tempo choices and each
 frame's best state return to the host, which backtracks every song from ITS
-final valid frame, so a batched decode equals a per-song decode of the
-unpadded activation. The observation log-probs are computed in float64 on
+final valid frame (in C++, the native DBN's own backtrack), so a batched
+decode equals a per-song decode of the unpadded activation. The observation log-probs are computed in float64 on
 the host, as the JAX code does, and cast to float32. Both decode functions
 can report their two stages' seconds in ``stage_s``: ``forward_s`` (the
 observations, the forward pass and the copy back) and ``backtrack_s`` (the
 host backtrack and the beat picking).
+
+``viterbi_path_f64`` is the offline DBN's Viterbi with its forward pass on a
+card (decode_beats with a CUDA ``device``): one song in float64, the host
+C++'s own adds, backtracked by the C++'s own backtrack, so its path is the
+host C++'s bit for bit.
 """
 
 from __future__ import annotations
@@ -23,14 +28,33 @@ import numpy as np
 import torch
 
 from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, _argmax_per_run, _state_space
+from zeronotesamba_torch.decode.dbn_native import backtrack_native
 from zeronotesamba_torch.device import resolve_device
 from zeronotesamba_torch.ops.cuda.dbn_kernel import ViterbiSpace, viterbi_forward, viterbi_space
+from zeronotesamba_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=8)
-def _space(cfg: DBNBeatDecoderConfig, device: torch.device) -> ViterbiSpace:
+def _space(cfg: DBNBeatDecoderConfig, device: torch.device, dtype: torch.dtype = torch.float32) -> ViterbiSpace:
     _, firsts, lasts, _, _, log_trans, is_beat = _state_space(cfg)
-    return viterbi_space(log_trans, firsts, lasts, is_beat, device)
+    return viterbi_space(log_trans, firsts, lasts, is_beat, device, dtype)
+
+
+def viterbi_path_f64(log_act: np.ndarray, log_nact: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(),
+                     *, device: str | torch.device) -> np.ndarray:
+    """The state path (int64, one per frame) of one song's (T,) float64
+    observation log-probs, as decode_beats computes them: they go to
+    ``device`` in one copy, the float64 forward pass runs there (one kernel
+    launch on a card, its plain version on the CPU), the tempo choices and
+    the best final state come back in one copy, and the native library
+    backtracks. Equal to viterbi_native's path bit for bit."""
+    dev = torch.device(device)
+    space = _space(cfg, dev, torch.float64)
+    obs = profiling.to_device(np.stack((log_act, log_nact)), dev)
+    _, fc, best = viterbi_forward(obs[0:1], obs[1:2], space)
+    # fc and the last frame's best state (its int32 as two int16) in one copy.
+    out = profiling.to_host(torch.cat((fc.view(-1), best[0, -1:].view(torch.int16))))
+    return _backtrack(int(out[fc.numel():].view(np.int32)[0]), out[:fc.numel()].reshape(fc.shape[1:]), cfg)
 
 
 def _observations(acts: np.ndarray, cfg: DBNBeatDecoderConfig):
@@ -49,16 +73,10 @@ def viterbi_forward_device(log_act: np.ndarray, log_nact: np.ndarray,
 
 
 def _backtrack(start_state: int, fcs: np.ndarray, cfg: DBNBeatDecoderConfig) -> np.ndarray:
-    _, firsts, lasts, _, _, _, _ = _state_space(cfg)
-    n_frames = fcs.shape[0]
-    path = np.empty(n_frames, dtype=np.int64)
-    s = start_state
-    first_to_int = {int(f): i for i, f in enumerate(firsts)}
-    for t in range(n_frames - 1, -1, -1):
-        path[t] = s
-        fi = first_to_int.get(s)
-        s = int(lasts[fcs[t, fi]]) if fi is not None else s - 1
-    return path
+    """The state path from ``start_state`` at the last frame through the
+    (T, n_int) tempo choices: the C++ backtrack (dbn_native.backtrack_native)."""
+    _, firsts, lasts, _, _, _, is_beat = _state_space(cfg)
+    return backtrack_native(fcs, start_state, firsts, lasts, is_beat.size)
 
 
 def _beats(path: np.ndarray, act: np.ndarray, cfg: DBNBeatDecoderConfig) -> np.ndarray:

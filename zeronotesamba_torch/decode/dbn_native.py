@@ -85,8 +85,23 @@ def _load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64),  # lasts
             ctypes.POINTER(ctypes.c_int64),  # path out
         ]
+        lib.dbn_backtrack.restype = None
+        lib.dbn_backtrack.argtypes = [
+            ctypes.POINTER(ctypes.c_int16),  # first_choice
+            ctypes.c_int64,  # T
+            ctypes.c_int64,  # n_int
+            ctypes.c_int64,  # n_states
+            ctypes.POINTER(ctypes.c_int64),  # firsts
+            ctypes.POINTER(ctypes.c_int64),  # lasts
+            ctypes.c_int64,  # start
+            ctypes.POINTER(ctypes.c_int64),  # path out
+        ]
         _LIB = lib
     return _LIB
+
+
+def _p(a: np.ndarray, ty):
+    return a.ctypes.data_as(ctypes.POINTER(ty))
 
 
 def viterbi_native(
@@ -111,15 +126,28 @@ def viterbi_native(
         raise ValueError("inconsistent Viterbi inputs")
     t = la.size
     path = np.empty(t, dtype=np.int64)
-
-    def p(a, ty):
-        return a.ctypes.data_as(ctypes.POINTER(ty))
-
     lib.dbn_viterbi(
-        p(la, ctypes.c_double), p(lna, ctypes.c_double), t,
-        p(iv, ctypes.c_int32), len(iv),
-        p(lt, ctypes.c_double), p(ib, ctypes.c_uint8), ib.size,
-        p(fs, ctypes.c_int64), p(ls, ctypes.c_int64),
-        p(path, ctypes.c_int64),
+        _p(la, ctypes.c_double), _p(lna, ctypes.c_double), t,
+        _p(iv, ctypes.c_int32), len(iv),
+        _p(lt, ctypes.c_double), _p(ib, ctypes.c_uint8), ib.size,
+        _p(fs, ctypes.c_int64), _p(ls, ctypes.c_int64),
+        _p(path, ctypes.c_int64),
     )
+    return path
+
+
+def backtrack_native(first_choice: np.ndarray, start: int, firsts: np.ndarray, lasts: np.ndarray,
+                     n_states: int) -> np.ndarray:
+    """The C++ backtrack that ends viterbi_native: the state path (int64, one
+    per frame) from state ``start`` at the last frame through the (T, n_int)
+    tempo choices of a forward pass."""
+    lib = _load()
+    fc = np.ascontiguousarray(first_choice, dtype=np.int16)
+    fs = np.ascontiguousarray(firsts, dtype=np.int64)
+    ls = np.ascontiguousarray(lasts, dtype=np.int64)
+    if fc.ndim != 2 or fc.shape[1] != fs.size or ls.shape != fs.shape or not 0 <= start < n_states:
+        raise ValueError("inconsistent backtrack inputs")
+    path = np.empty(fc.shape[0], dtype=np.int64)
+    lib.dbn_backtrack(_p(fc, ctypes.c_int16), fc.shape[0], fs.size, n_states, _p(fs, ctypes.c_int64),
+                      _p(ls, ctypes.c_int64), int(start), _p(path, ctypes.c_int64))
     return path

@@ -130,7 +130,7 @@ class BeatTracker:
                 with profiling.span("track.download"):
                     anc_np, pos_np, fused_np, vqt_np = (profiling.to_host(t)
                                                         for t in (anc_p[0], pos_p[0], fused[0], vqts))
-            beats = decode_fn(fused_np, decoder, fps=FPS) if decoder else None
+            beats = decode_fn(fused_np, decoder, fps=FPS, device=self.device) if decoder else None
         return InferenceResult(
             anchor_pulse=anc_np,
             positive_pulse=pos_np,

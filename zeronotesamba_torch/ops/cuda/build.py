@@ -2,9 +2,10 @@
 
 Every source under ``zeronotesamba_torch/csrc/`` compiles with its own
 ``nvcc`` process, all started together, into a plain-C shared library for
-``sm_90a``. The libraries land in ``zeronotesamba_torch/_build/<hash>/``,
-keyed by a hash of the sources, the flags, the host's CPU fingerprint and
-nvcc's version (utils/hostcache.py), so a fresh checkout builds them at
+``sm_90a`` (a header, ``*.cuh``, is shared by the sources that include
+it). The libraries land in ``zeronotesamba_torch/_build/<hash>/``, keyed by
+a hash of the sources and headers, the flags, the host's CPU fingerprint
+and nvcc's version (utils/hostcache.py), so a fresh checkout builds them at
 first CUDA use, later processes reuse them, and a build made on another
 host is never loaded. Nothing builds at import time; a failed build raises.
 """
@@ -24,7 +25,7 @@ from zeronotesamba_torch.utils import hostcache
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("vqt_cascade", "vqt_octave", "dbn_viterbi", "conv_fprop")
+SOURCES = ("vqt_cascade", "vqt_octave", "dbn_viterbi", "dbn_viterbi_f64", "conv_fprop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,9 +50,9 @@ def build_dir() -> Path:
         raise FileNotFoundError(f"CUDA sources {missing} not found under {CSRC}; the kernels cannot be built")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(hostcache.build_tag(_nvcc()).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -3,10 +3,14 @@
 Counterpart of zeronotesamba_tpu/decode/dbn_jax.py::_viterbi_scan under
 ``vmap``: the max-product recursion over the beat state space for every song
 of a padded batch, in float32, returning the final scores, each frame's
-tempo choices into the chain heads and each frame's best state.
-``viterbi_forward`` launches csrc/dbn_viterbi.cu (one launch a batch, the
-frame loop inside the kernel) for CUDA tensors and runs the plain version,
-a loop over frames of (batch, n_states) tensor operations, for CPU tensors;
+tempo choices into the chain heads and each frame's best state. A float64
+space (``viterbi_space(..., dtype=torch.float64)``) runs the same recursion
+in float64, the host C++ DBN's own adds (decode/dbn_device.viterbi_path_f64);
+the observations' dtype picks the kernel's instance (csrc/dbn_viterbi.cu or
+csrc/dbn_viterbi_f64.cu, both of csrc/dbn_viterbi.cuh's kernel).
+``viterbi_forward`` launches it (one launch a batch, the frame loop inside
+the kernel) for CUDA tensors and runs the plain version, a loop over frames
+of (batch, n_states) tensor operations, for CPU tensors;
 there is no fallback between the two. ``profiling.totals("dbn_launch.")``
 counts kernel launches.
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -35,8 +40,10 @@ import torch
 from zeronotesamba_torch.utils import profiling
 
 profiling.count("dbn_launch.viterbi", 0)
-# The round lengths csrc/dbn_viterbi.cu is instantiated for (the cases of zns_dbn_viterbi's switch).
+# The round lengths csrc/dbn_viterbi.cuh is instantiated for (the cases of dispatch's switch).
 ROUND_FRAMES = (1, 2, 3, 4, 6, 8, 12, 16, 17, 24)
+# The float64 instance's block (at most 384 threads: its scores take twice the registers).
+F64_THREADS = 384
 
 
 def frames_per_round(firsts: np.ndarray, lasts: np.ndarray) -> int:
@@ -62,14 +69,18 @@ class ViterbiSpace:
     """A beat state space as tensors on one device: ``n_int`` chains of
     consecutive states, chain i from ``firsts[i]`` to ``lasts[i]``."""
 
-    log_trans: torch.Tensor  # (n_int, n_int) float32, from-major
+    log_trans: torch.Tensor  # (n_int, n_int) float32 or float64 (the score type), from-major
     firsts: torch.Tensor  # (n_int,) int32
     lasts: torch.Tensor  # (n_int,) int32
     is_beat: torch.Tensor  # (n_states,) uint8
-    v0: float  # the initial score of every state (a float32 value)
+    v0: float  # the initial score of every state (a value of the score type)
     band_lo: torch.Tensor  # (n_int,) int32, transition_bands
     band_hi: torch.Tensor  # (n_int,) int32
     frames_per_round: int  # R, frames_per_round
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.log_trans.dtype
 
     @property
     def n_int(self) -> int:
@@ -81,17 +92,21 @@ class ViterbiSpace:
 
 
 def viterbi_space(log_trans: np.ndarray, firsts: np.ndarray, lasts: np.ndarray, is_beat: np.ndarray,
-                  device: str | torch.device) -> ViterbiSpace:
+                  device: str | torch.device, dtype: torch.dtype = torch.float32) -> ViterbiSpace:
     """Check the chain layout the kernel relies on and put the state space on
-    ``device``: ``log_trans`` cast to float32, the uniform start
-    -log(n_states) rounded to float32, as the JAX scan starts."""
+    ``device`` with scores of ``dtype``: float32, ``log_trans`` cast to it
+    and the uniform start -log(n_states) rounded to it, as the JAX scan
+    starts; or float64, both as the host C++ DBN starts (its
+    ``-std::log(n_states)``: ``math.log`` calls the same C library)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the score type must be float32 or float64, got {dtype}")
     firsts, lasts = np.asarray(firsts, np.int64), np.asarray(lasts, np.int64)
     n_int, n_states = firsts.size, np.asarray(is_beat).size
     if (n_int < 1 or lasts.shape != firsts.shape or np.shape(log_trans) != (n_int, n_int) or firsts[0] != 0
             or lasts[-1] != n_states - 1 or not np.array_equal(firsts[1:], lasts[:-1] + 1)
             or np.any(lasts < firsts)):
         raise ValueError("the state space must be n_int chains of consecutive states, in order, covering every state")
-    log_trans = np.asarray(log_trans, np.float32)
+    log_trans = np.asarray(log_trans, np.float32 if dtype == torch.float32 else np.float64)
     if np.isnan(log_trans).any() or (log_trans == np.inf).any():
         raise ValueError("log_trans must hold log-probabilities: finite values or -inf")
     lo, hi = transition_bands(log_trans)
@@ -100,7 +115,7 @@ def viterbi_space(log_trans: np.ndarray, firsts: np.ndarray, lasts: np.ndarray, 
         firsts=torch.tensor(firsts, dtype=torch.int32, device=device),
         lasts=torch.tensor(lasts, dtype=torch.int32, device=device),
         is_beat=torch.tensor(np.asarray(is_beat, np.uint8), device=device),
-        v0=float(np.float32(-np.log(float(n_states)))),
+        v0=float(np.float32(-np.log(float(n_states)))) if dtype == torch.float32 else -math.log(n_states),
         band_lo=torch.tensor(lo, device=device),
         band_hi=torch.tensor(hi, device=device),
         frames_per_round=frames_per_round(firsts, lasts),
@@ -108,13 +123,14 @@ def viterbi_space(log_trans: np.ndarray, firsts: np.ndarray, lasts: np.ndarray, 
 
 
 def viterbi_forward_plain(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace):
-    """The kernel's plain version: (B, T) float32 observation log-probs ->
-    (v_final (B, n_states) float32, fc (B, T, n_int) int16, best (B, T) int32)."""
+    """The kernel's plain version: (B, T) observation log-probs of the
+    space's dtype -> (v_final (B, n_states) of that dtype, fc (B, T, n_int)
+    int16, best (B, T) int32)."""
     batch, n_frames = log_act.shape
     dev = log_act.device
     firsts, lasts = space.firsts.long(), space.lasts.long()
     beat = space.is_beat.bool()
-    v = torch.full((batch, space.n_states), space.v0, dtype=torch.float32, device=dev)
+    v = torch.full((batch, space.n_states), space.v0, dtype=space.dtype, device=dev)
     fc = torch.empty((batch, n_frames, space.n_int), dtype=torch.int16, device=dev)
     best = torch.empty((batch, n_frames), dtype=torch.int32, device=dev)
     for t in range(n_frames):
@@ -128,12 +144,14 @@ def viterbi_forward_plain(log_act: torch.Tensor, log_nact: torch.Tensor, space: 
 
 
 @functools.lru_cache(maxsize=None)
-def _entry() -> ctypes._CFuncPtr:
+def _entry(dtype: torch.dtype) -> ctypes._CFuncPtr:
+    """The C entry of the kernel's instance for scores of ``dtype``."""
     from zeronotesamba_torch.ops.cuda.build import load
 
-    fn = load("dbn_viterbi").zns_dbn_viterbi
+    fn, v0 = (load("dbn_viterbi").zns_dbn_viterbi, ctypes.c_float) if dtype == torch.float32 else \
+        (load("dbn_viterbi_f64").zns_dbn_viterbi_f64, ctypes.c_double)
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, p, i64, i64, p, p, p, p, p, i32, p, i32, ctypes.c_float, i32, i32, p, p, p, p]
+    fn.argtypes = [p, p, i64, i64, p, p, p, p, p, i32, p, i32, v0, i32, i32, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -144,20 +162,23 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _viterbi_forward_cuda(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace, threads: int = 0):
-    """One launch; ``threads`` a block (a multiple of 32 from 64 to 512), or
-    0: 512 where the batch leaves SMs idle (fewer songs than twice the
-    card's SMs), else 256, as chip_smoke.py's sweep of the decode shapes
-    found fastest."""
+    """One launch; ``threads`` a block (a multiple of 32 from 64 to 512, to
+    384 in float64), or 0: in float32 512 where the batch leaves SMs idle
+    (fewer songs than twice the card's SMs), else 256, as chip_smoke.py's
+    sweep of the decode shapes found fastest; in float64 F64_THREADS."""
     batch, n_frames = log_act.shape
     dev = log_act.device
     if threads == 0:
-        threads = 512 if batch < 2 * _sm_count(dev) else 256
-    v_final = torch.empty((batch, space.n_states), dtype=torch.float32, device=dev)
+        if space.dtype == torch.float64:
+            threads = F64_THREADS
+        else:
+            threads = 512 if batch < 2 * _sm_count(dev) else 256
+    v_final = torch.empty((batch, space.n_states), dtype=space.dtype, device=dev)
     fc = torch.empty((batch, n_frames, space.n_int), dtype=torch.int16, device=dev)
     best = torch.empty((batch, n_frames), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(log_act.data_ptr(), log_nact.data_ptr(), batch, n_frames, space.log_trans.data_ptr(),
+        err = _entry(space.dtype)(log_act.data_ptr(), log_nact.data_ptr(), batch, n_frames, space.log_trans.data_ptr(),
                        space.firsts.data_ptr(), space.lasts.data_ptr(), space.band_lo.data_ptr(),
                        space.band_hi.data_ptr(), space.n_int, space.is_beat.data_ptr(), space.n_states, space.v0,
                        space.frames_per_round, threads, v_final.data_ptr(), fc.data_ptr(), best.data_ptr(), stream)
@@ -168,13 +189,14 @@ def _viterbi_forward_cuda(log_act: torch.Tensor, log_nact: torch.Tensor, space: 
 
 
 def viterbi_forward(log_act: torch.Tensor, log_nact: torch.Tensor, space: ViterbiSpace):
-    """The Viterbi forward pass of a padded batch: (B, T) float32 log_act and
-    log_nact -> (v_final (B, n_states) float32, fc (B, T, n_int) int16,
-    best (B, T) int32); see viterbi_forward_plain. One kernel launch for
-    CUDA tensors, the plain version for CPU tensors."""
+    """The Viterbi forward pass of a padded batch: (B, T) log_act and
+    log_nact of the space's dtype (float32 or float64) -> (v_final
+    (B, n_states) of that dtype, fc (B, T, n_int) int16, best (B, T) int32);
+    see viterbi_forward_plain. One kernel launch for CUDA tensors, the plain
+    version for CPU tensors."""
     for name, t in (("log_act", log_act), ("log_nact", log_nact)):
-        if t.dtype != torch.float32 or t.ndim != 2:
-            raise TypeError(f"{name} must be a (batch, frames) float32 tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != space.dtype or t.ndim != 2:
+            raise TypeError(f"{name} must be a (batch, frames) {space.dtype} tensor, got {t.dtype} {tuple(t.shape)}")
     if log_act.shape != log_nact.shape:
         raise ValueError(f"log_act {tuple(log_act.shape)} and log_nact {tuple(log_nact.shape)} differ")
     if not log_act.device == log_nact.device == space.log_trans.device:

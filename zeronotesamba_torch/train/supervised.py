@@ -307,7 +307,7 @@ def run_epoch(
 
     def score_batch(out_np: np.ndarray, rows: np.ndarray, bucket: Bucket) -> None:
         for b, row in enumerate(rows):
-            est = decode_beats_fn(out_np[b, : bucket.n_frames[row]], cfg.eval_method, fps=FPS)
+            est = decode_beats_fn(out_np[b, : bucket.n_frames[row]], cfg.eval_method, fps=FPS, device=bucket.vqt.device)
             with profiling.span("score"):
                 all_scores.append(evaluate_beats(bucket.beat_times[row], est))
 
