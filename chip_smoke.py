@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py [--trace]
 
+It checks the port on the card and times its kernels alone. The system's
+end-to-end numbers are the benchmark's (benchmark/run.py), not this
+script's.
+
 Phases, each printing one JSON line:
 
 1. device     -- refuse to run without CUDA; card name and power limit; TF32 off.
@@ -20,8 +24,10 @@ Phases, each printing one JSON line:
                  and cuDNN's per-shape pick (cudnn.benchmark, set only here).
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
                  the CPU with the same seeded weights; launch counters; the DBN
-                 backend (native C++) and its numpy twin; the librosa decoder;
-                 Ellis DP on the raw clicks; the CLI.
+                 backend (its forward pass on the card), against the native
+                 C++ and numpy decodes of the same pulse; one bfloat16
+                 track_signal (shape, finite); the librosa decoder; Ellis DP
+                 on the raw clicks; the CLI.
 5. decode     -- the batched DBN Viterbi kernel on its path at three shapes,
                  each decoded once through a device entry point with its one
                  launch counted: 20 ragged songs padded to 3,750 frames and
@@ -31,46 +37,43 @@ Phases, each printing one JSON line:
                  512 threads a block, the gated songs' beats against the
                  float64 DBN, and the host backtrack's share; native against
                  numpy and the online DBN on the 20-song batch.
-6. throughput -- log-VQT + FusedDownstream on batch 32 x 10 s, float32 and bf16.
-7. train      -- the supervised training path, one JSON line per part: the ETL
+6. train      -- the supervised training path, one JSON line per part: the ETL
                  (build_synthetic, 16 songs x 12 s, on the card, with its kernel
                  launches counted and two songs held against the CPU), one
-                 train_step card vs CPU, train-step times at batch 8 x 768
-                 frames in float32 and bf16, the 4-fold experiment (mean
-                 held-out F1 >= 0.9, class-balanced BCE), and the
-                 build-data / beat CLI.
-8. pretext    -- self-supervised pretext training, one JSON line per part: the
+                 train_step card vs CPU, the 4-fold experiment (mean held-out
+                 F1 >= 0.9, class-balanced BCE), and the build-data / beat CLI.
+7. pretext    -- self-supervised pretext training, one JSON line per part: the
                  banks (mine_stems with HPSS on 12 synthetic 12 s mixes and a
                  tone, the stem bank and the CLMR bank on the card, launches
                  counted, two items held against the CPU), one staged k = 2
-                 NT-Xent step card vs CPU, step times at batch 16 x 313 in
-                 float32 and bf16, a 3-epoch train_pretext with proxy-F1
-                 selection and one resumed epoch, and the pretext / infer CLI.
-9. evaluate   -- the evaluation path: one BockTCN train step card vs CPU, its step
+                 NT-Xent step card vs CPU, a 3-epoch train_pretext with
+                 proxy-F1 selection and one resumed epoch, and the pretext /
+                 infer CLI.
+8. evaluate   -- the evaluation path: one BockTCN train step card vs CPU, its step
                  time at batch 8 x 768, 20 steps that must lower the loss, and
                  the beat --status bock / cross / few-shot / measures /
                  old-school / track-dir / resave CLI (track-dir --decoder dbn
                  as a subprocess, the rest through cli.main in this process).
-10. separator -- the learned separator, one JSON line per part: one MaskNet
+9. separator  -- the learned separator, one JSON line per part: one MaskNet
                  train_step card vs CPU, step times at batch 8 x 256 frames, the
                  shipped weights' SI-SDR on synth_bank(8, 12 s, 999) against the
                  JAX package's and the card's HPSS, a 20-step train_separator and
                  the train-separator CLI, and the learned serving path: a 30 s
                  click track through track_signal(separation="learned") on the
-                 card and the CPU, launches counted, its stage times, and
-                 infer / track-dir --separation learned.
-11. suite     -- run_demo_suite at a small size on the card (launches counted;
+                 card and the CPU, launches counted, the DBN's three decodes
+                 of its pulse, and infer / track-dir --separation learned.
+10. suite     -- run_demo_suite at a small size on the card (launches counted;
                  finite results, F1 in [0, 1], the JAX suite's key tree), the
                  export-xlsx CLI on its output, resample_device card vs CPU, and
                  the card's log-VQT against the direct float64 oracle.
-12. mesh      -- data parallelism over torch.distributed, one JSON line per part,
+11. mesh      -- data parallelism over torch.distributed, one JSON line per part,
                  at full width (the twin, batch 16 x 313, float32, TF32 off): on
                  a world of one NCCL rank in this process the track-parallel
                  step (k = 2, dropout on) against the single-device step, both
                  timed, and ntxent_global against ntxent; two gloo ranks sharing
                  the card (run_ranks) against the single-rank k = 4 step and
                  ntxent on the global batch; pretext --data-parallel
-                 --stem-root on phase 8's stems as a subprocess (one NCCL rank
+                 --stem-root on phase 7's stems as a subprocess (one NCCL rank
                  a card), the VQT launches of its bank build as its rank 0
                  counts and prints them, and infer --params with its checkpoint;
                  then the time and model axes: parallel/dryrun.entry() card vs
@@ -79,15 +82,16 @@ Phases, each printing one JSON line:
                  batch 8 x 768 (dropout 0) on a (1, 2, 1) and a (1, 1, 2) mesh
                  of two gloo ranks against the single-device step, with its
                  time, halo and channel bytes and peak memory a rank.
-13. multistep -- steps_per_call, cuDNN deterministic: at the train and pretext
+12. multistep -- steps_per_call, cuDNN deterministic: at the train and pretext
                  cells' shapes (the twin at 8 x 768 in float32 and bf16,
                  BockTCN at 8 x 768, the zerons step at 16 x 313 in float32
                  and bf16 and its k = 2 track step in bf16), one K = 8 call
                  (one CUDA graph, captured at the first call) against 8
-                 eager steps of the same code from the same state: losses,
-                 outputs and parameters bit for bit; ms a step at K = 1 and
-                 K = 8, the capture's seconds, peak memory and the device's
-                 idle share each way from the profiler; then beat
+                 eager steps of the same code from the same state: losses
+                 finite, and losses, outputs and parameters bit for bit; ms
+                 a step at K = 1 and K = 8, the capture's seconds, peak
+                 memory and the device's idle share each way from the
+                 profiler; then beat
                  --steps-per-call 8 against --steps-per-call 1 (4 folds,
                  batch 1): the same fold F1s and results.
 
@@ -104,9 +108,8 @@ held against ``bound_ms``. The CUDA-event time around the Python wrapper,
 which also counts the argument checks and the ctypes call, is ``event_ms``
 beside it. ``--trace`` adds torch.profiler readings: each kernel's self
 device time in a trace (``trace_ms``, ``plain_trace_ms``,
-``library_trace_ms``) and the device's busy time over one warm
-``track_signal``. The default run uses no profiler, so it does not depend on
-CUPTI being free for this process.
+``library_trace_ms``). The default run uses no profiler, so it does not
+depend on CUPTI being free for this process.
 """
 
 from __future__ import annotations
@@ -126,14 +129,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark.reference.counts import PEAK_BYTES_S, PEAK_FP32_FLOPS
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 LOG_PATH = os.path.join(OUT_DIR, "smoke.jsonl")
 
 SR = 16000
 FPS = 62.5
-PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
-PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 CASCADE_TOL = dict(rtol=1e-5, atol=1e-5)
 OCTAVE_ATOL = 1e-4  # log magnitudes, float32 sums in another order
 VQT_ATOL = 5e-4  # kernels vs plain conv path, as the JAX package's Pallas tests
@@ -444,8 +447,8 @@ def phase_kernels(stats: dict, trace: bool) -> None:
                 stats[kname].update({f: v for f, v in row[kname].items()
                                      if f in ("ms", "bound_by") or f.endswith("_ms")})
     # cuBLAS keeps a workspace for each stream that ran a matmul (the capture
-    # stream among them); free them so that the throughput phase's peak
-    # memory is the model's own.
+    # stream among them); free them so that later phases' peak memory is
+    # the model's own.
     torch._C._cuda_clearCublasWorkspaces()
 
 
@@ -539,60 +542,19 @@ def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
         check(d <= 1.0 / FPS + 1e-9, f"{what}: beats differ by {d} s (> 1 frame)")
 
 
-def _stage_breakdown(tracker, sig: np.ndarray, trace: bool, separation: str = "hpss") -> dict:
-    """Host-clock seconds of each stage of one warm track_signal on the card
-    (the same calls, each ended by a synchronize), and with ``trace`` the
-    device's busy time over one whole warm call from the profiler. With
-    ``separation="learned"`` (the shipped separator) the HPSS stage is timed
-    beside it."""
-    from zeronotesamba_torch.data.separation import separate
+def _dbn_agrees(pulse: np.ndarray, what: str) -> None:
+    """The DBN as track_signal runs it (its forward pass on the card), the
+    native C++ and the numpy Viterbi on the same pulse: the same beats."""
     from zeronotesamba_torch.decode import decode
     from zeronotesamba_torch.decode.dbn import decode_beats
-    from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
-    from zeronotesamba_torch.ops.filterbank import XQTParams
-    from zeronotesamba_torch.ops.vqt import best_log_xqt
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    out = {}
-    sep_model = SEPARATOR_NPZ if separation == "learned" else None
-    with torch.inference_mode():
-        if separation != "hpss":
-            _, out["separation_hpss_s"] = timed(lambda: separate(sig, SR, "hpss", device=tracker.device))
-        (anc, pos), out[f"separation_{separation}_s"] = timed(
-            lambda: separate(sig, SR, separation, model_path=sep_model, device=tracker.device))
-        vqts, out["log_vqt_s"] = timed(lambda: best_log_xqt(
-            torch.as_tensor(np.stack([anc, pos]), device=tracker.device), XQTParams()))
-        fused, out["encoders_s"] = timed(lambda: tracker.model(vqts[0:1, None], vqts[1:2, None]).cpu().numpy()[0])
-    # The DBN as track_signal runs it (its forward pass on the card), the
-    # native C++ and the numpy Viterbi on the same pulse: the same beats.
-    card, out["dbn_decode_s"] = timed(lambda: decode(fused, "dbn", device=tracker.device))
-    native, out["dbn_decode_native_s"] = timed(lambda: decode(fused, "dbn"))
-    plain, out["dbn_decode_numpy_s"] = timed(lambda: decode_beats(fused, use_native=False))
-    check(np.array_equal(native, plain), "native and numpy DBN beats differ on the main path's pulse")
-    check(np.array_equal(card, native), "card and native DBN beats differ on the main path's pulse")
-    if not trace:
-        return out
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: tracker.track_signal(sig, separation=separation, sep_model=sep_model, decoder="dbn"))
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
-    out["profiled_wall_s"] = wall
-    out["device_busy_s"] = busy_us / 1e6
-    out["device_idle_share"] = 1.0 - busy_us / 1e6 / wall
-    out["top_device_ops"] = [(e.key[:60], e.self_device_time_total / 1e3)
-                             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
-    return out
+    card, native = decode(pulse, "dbn", device="cuda"), decode(pulse, "dbn")
+    check(np.array_equal(native, decode_beats(pulse, use_native=False)),
+          f"native and numpy DBN beats differ on the {what}'s pulse")
+    check(np.array_equal(card, native), f"card and native DBN beats differ on the {what}'s pulse")
 
 
-def phase_main_path(stats: dict, trace: bool) -> None:
+def phase_main_path(stats: dict) -> None:
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
     from zeronotesamba_torch.decode.ellis import beat_track_signal
@@ -655,6 +617,12 @@ def phase_main_path(stats: dict, trace: bool) -> None:
     check(len(lib_g) > 0, "no beats from the librosa decoder")
     old_school_f1 = float(evaluate_beats(clicks, beat_track_signal(sig))[0])
     check(old_school_f1 >= OLD_SCHOOL_F1_MIN, f"Ellis DP on the click track F1 {old_school_f1} < {OLD_SCHOOL_F1_MIN}")
+    _dbn_agrees(res_g.fused_pulse, "main path")
+    # bfloat16 inference, untimed: its only check on the card.
+    bf16 = BeatTracker(seed=0, device="cuda", compute_dtype=torch.bfloat16).track_signal(
+        sig, separation="hpss", decoder=None).fused_pulse
+    check(bf16.shape == (n_frames,), f"bf16 output shape {bf16.shape}")
+    check(bool(np.isfinite(bf16).all()), "bf16 output not finite")
 
     # The CLI on the card, on a written wav, against the same tracker in-process.
     wav = os.path.join(OUT_DIR, "click_12s.wav")
@@ -676,64 +644,8 @@ def phase_main_path(stats: dict, trace: bool) -> None:
          dbn_backend=dbn_backend,
          max_abs_err_card_vs_cpu=errs, n_beats=len(res_g.beat_times), librosa_n_beats=len(lib_g),
          old_school_f1=old_school_f1, card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
-         card_breakdown=_stage_breakdown(gpu, sig, trace),
          cli=dict(seconds=cli_s, n_frames=payload["n_frames"], n_beats=len(payload["beat_times"])))
     return res_g.fused_pulse
-
-
-def encoder_flops(n_frames: int) -> float:
-    """Forward FLOPs (mul+add = 2) of one encoder stream + head at n_frames,
-    counted as bench.py counts them."""
-    from zeronotesamba_torch.models.encoder import CONV_SPECS, EMBED_DIM, POOL_AFTER
-
-    macs, h, cin = 0, 96, 1
-    for i, (cout, (kh, kw)) in enumerate(CONV_SPECS):
-        macs += kh * kw * cin * cout * h
-        if i in POOL_AFTER:
-            h //= POOL_AFTER[i]
-        cin = cout
-    return 2.0 * (macs + EMBED_DIM) * n_frames
-
-
-def phase_throughput() -> None:
-    from zeronotesamba_torch.models.encoder import FusedDownstream
-    from zeronotesamba_torch.ops.filterbank import XQTParams
-    from zeronotesamba_torch.ops.vqt import best_log_xqt
-
-    batch, secs, steps, warmup, distinct = 32, 10.0, 6, 2, 3
-    params = XQTParams()
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    data = [(0.1 * torch.randn(batch, int(secs * SR), device="cuda", generator=gen),
-             0.1 * torch.randn(batch, int(secs * SR), device="cuda", generator=gen)) for _ in range(distinct)]
-    for dtype in (torch.float32, torch.bfloat16):
-        model = FusedDownstream(compute_dtype=dtype)
-        model.reset_parameters(torch.Generator().manual_seed(0))
-        model.to("cuda").eval()
-        torch.cuda.reset_peak_memory_stats()
-        step_ms, vqt_ms = [], []
-        with torch.inference_mode():
-            for i in range(warmup + steps):
-                anc, pos = data[i % distinct]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                va, vp = best_log_xqt(anc, params), best_log_xqt(pos, params)
-                e1.record()
-                out = model(va[:, None], vp[:, None])
-                torch.cuda.synchronize()
-                if i >= warmup:
-                    step_ms.append((time.perf_counter() - t0) * 1e3)
-                    vqt_ms.append(e0.elapsed_time(e1))
-        check(out.shape == (batch, params.num_frames(int(secs * SR))), f"throughput output shape {out.shape}")
-        check(bool(torch.isfinite(out).all()), "throughput output not finite")
-        ms = statistics.median(step_ms)
-        enc_flops = 2 * batch * encoder_flops(out.shape[1])  # anchor + positive streams
-        emit("throughput", dtype=str(dtype).replace("torch.", ""), batch=batch, clip_s=secs, steps=steps,
-             ms_per_step=ms, audio_min_per_s=batch * secs / 60.0 / (ms / 1e3),
-             vqt_ms_per_step=statistics.median(vqt_ms), encoder_tflop_per_step=enc_flops / 1e12,
-             encoder_tflop_per_s=enc_flops / 1e12 / ((ms - statistics.median(vqt_ms)) / 1e3),
-             max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
 VQT_ERR_KEYS = ("vqt", "near_empty_card_vs_f64", "near_empty_cpu_vs_f64", "near_empty_card_vs_cpu",
@@ -852,37 +764,6 @@ def _train_step_parity(ds) -> None:
          seconds_cpu=c["seconds"])
 
 
-def _train_throughput() -> None:
-    """bench.py's bench_supervised_train on the card: pretrained fused twin,
-    batch 8 x 768 frames, dropout on, distinct device batches."""
-    from zeronotesamba_torch.train.supervised import SupervisedConfig, dropout_generator, init_state, train_step
-
-    batch, frames, steps, warmup, distinct = 8, 768, 6, 2, 3
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    data = [torch.randn(batch, 2, 96, frames, device="cuda", generator=gen) * 4.0 - 6.0 for _ in range(distinct)]
-    pulse = torch.zeros(batch, frames, device="cuda")
-    mask = torch.ones(batch, frames, device="cuda")
-    flops = 3.0 * 2.0 * batch * encoder_flops(frames)  # fwd + bwd, two streams
-    for dtype in ("float32", "bfloat16"):
-        cfg = SupervisedConfig(status="pretrained", lr=1e-4, bucket_frames=frames, compute_dtype=dtype)
-        state = init_state(cfg, None, 0, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i in range(warmup + steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss, _ = train_step(state, data[i % distinct], pulse, mask,
-                                        dropout_generator(0, i, "cuda"), cfg.status)
-            check(math.isfinite(float(loss)), f"train step loss not finite ({dtype})")  # the read syncs
-            if i >= warmup:
-                times.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(times)
-        emit("train", part="throughput", dtype=dtype, batch=batch, frames=frames, steps=steps, ms_per_step=ms,
-             step_ms=times, tflop_per_step=flops / 1e12, tflop_per_s=flops / 1e12 / (ms / 1e3),
-             max_memory_allocated=torch.cuda.max_memory_allocated())
-        del state
-
-
 def _experiment(ds) -> None:
     """Does it learn: vanilla, lr 2e-4, batch 8, 4 folds, DBN decoding,
     through run_beat_experiment, with the JAX demo suite's class balancing
@@ -945,7 +826,6 @@ def phase_train(stats: dict):
     t0 = time.perf_counter()
     ds = _etl(stats)
     _train_step_parity(ds)
-    _train_throughput()
     _experiment(ds)
     _train_cli(ds)
     emit("train", part="done", seconds=time.perf_counter() - t0)
@@ -1095,42 +975,6 @@ def _pretext_step_parity(bank: np.ndarray) -> None:
          k2_vs_mean_of_tracks_rel=k2_rel, seconds_card=g["seconds"], seconds_cpu=c["seconds"])
 
 
-def _pretext_throughput() -> None:
-    """bench.py's bench_pretext_train on the card: the staged zerons step,
-    batch 16 x 313 from a random 4-track bank of 626 frames on the device,
-    distinct (track, starts) a step, dropout on, 3 warm-up and 10 timed
-    steps, each ended by a loss read."""
-    from zeronotesamba_torch.train.pretext import (
-        PretextConfig, init_pretext_state, make_staged_train_step, sample_shifts,
-    )
-    from zeronotesamba_torch.train.supervised import dropout_generator
-
-    batch, steps, warmup = 16, 10, 3
-    bank = torch.randn(4, 2, 96, 2 * PRETEXT_CROP, device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(1))
-    flops = 3.0 * 2.0 * batch * encoder_flops(PRETEXT_CROP)  # fwd + bwd, two streams
-    for dtype in ("float32", "bfloat16"):
-        cfg = PretextConfig(batch_size=batch, crop_frames=PRETEXT_CROP, compute_dtype=dtype)
-        state = init_pretext_state(cfg, 0, device="cuda")
-        step = make_staged_train_step(cfg)
-        rng = np.random.default_rng(2)
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i in range(warmup + steps):
-            starts = sample_shifts(bank.shape[-1], batch, PRETEXT_CROP, rng)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss, _, _ = step(state, bank, i % 4, starts, dropout_generator(3, i, "cuda"))
-            check(math.isfinite(float(loss)), f"pretext step loss not finite ({dtype})")  # the read syncs
-            if i >= warmup:
-                times.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(times)
-        emit("pretext", part="throughput", dtype=dtype, batch=batch, crop=PRETEXT_CROP, steps=steps, ms_per_step=ms,
-             step_ms=times, tflop_per_step=flops / 1e12, tflop_per_s=flops / 1e12 / (ms / 1e3),
-             max_memory_allocated=torch.cuda.max_memory_allocated())
-        del state
-
-
 def _pretext_run(bank: np.ndarray) -> None:
     """train_pretext on the mined bank (10 train, 2 val items), zerons,
     batch 16 x 313, lr 3e-6, 3 epochs, proxy-F1 selection on 4 synthetic
@@ -1206,7 +1050,6 @@ def phase_pretext(stats: dict) -> np.ndarray:
     t0 = time.perf_counter()
     bank = _pretext_bank(stats)
     _pretext_step_parity(bank)
-    _pretext_throughput()
     _pretext_run(bank)
     _pretext_cli(bank)
     emit("pretext", part="done", seconds=time.perf_counter() - t0)
@@ -1717,11 +1560,11 @@ def _separator_train() -> None:
          eval_every=SEP_EVAL_EVERY, seconds=run_s, history=hist, cli_seconds=cli_s, cli=report)
 
 
-def _separator_serving(stats: dict, trace: bool) -> None:
+def _separator_serving(stats: dict) -> None:
     """The learned serving path: track_signal(separation="learned") with the
     shipped separator on the main path's 30 s click track, on the card (with
-    the kernel launches of one call counted) and on the CPU; its stages; the
-    infer (in this process) and track-dir --separation learned (a
+    the kernel launches of one call counted) and on the CPU; the DBN's three
+    decodes of its pulse; the infer (in this process) and track-dir --separation learned (a
     subprocess) CLI against the same tracker."""
     from zeronotesamba_torch.data import audio_io
     from zeronotesamba_torch.data.synthetic import click_track
@@ -1768,21 +1611,21 @@ def _separator_serving(stats: dict, trace: bool) -> None:
         tracked = json.load(fh)
     check(list(tracked) == ["click_12s.wav"], f"track-dir --separation learned {tracked}")
     _beats_match(np.asarray(tracked["click_12s.wav"]), ref.beat_times, "track-dir --separation learned vs in-process")
-    breakdown = _stage_breakdown(gpu, sig, trace, separation="learned")
+    _dbn_agrees(res_g.fused_pulse, "learned path")
     emit("separator", part="serving", clip_s=30.0, launches=launches, max_abs_err_card_vs_cpu=errs,
          n_beats=len(res_g.beat_times), card_first_s=first_s, card_warm_s=warm_s, cpu_s=cpu_s,
-         masknet_gflop=separator_flops(res_g.fused_pulse.shape[0]) / 1e9, card_breakdown=breakdown,
+         masknet_gflop=separator_flops(res_g.fused_pulse.shape[0]) / 1e9,
          cli=dict(seconds=cli_s, n_frames=payload["n_frames"], n_beats=len(payload["beat_times"]),
                   track_dir_seconds=track_dir_s))
 
 
-def phase_separator(stats: dict, trace: bool) -> None:
+def phase_separator(stats: dict) -> None:
     t0 = time.perf_counter()
     _separator_step_parity()
     _separator_throughput()
     _separator_quality()
     _separator_train()
-    _separator_serving(stats, trace)
+    _separator_serving(stats)
     emit("separator", part="done", seconds=time.perf_counter() - t0)
 
 
@@ -2070,7 +1913,7 @@ def _mesh_two_ranks(bank: np.ndarray, smi: str) -> None:
 
 
 def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
-    """pretext --data-parallel --stem-root on phase 8's stems (one NCCL rank
+    """pretext --data-parallel --stem-root on phase 7's stems (one NCCL rank
     a card), with the VQT launches of the bank build that its rank 0 counts
     and prints, and infer --params with the checkpoint it wrote, in this
     process."""
@@ -2080,7 +1923,7 @@ def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
     run_dir = os.path.join(OUT_DIR, "mesh_cli")
     shutil.rmtree(run_dir, ignore_errors=True)
     ckpt = os.path.join(run_dir, "shift_pret_cnn_16.pth")
-    wav = os.path.join(OUT_DIR, "pretext_click.wav")  # phase 8's
+    wav = os.path.join(OUT_DIR, "pretext_click.wav")  # phase 7's
     secs, out = {}, {}
     for name, args in (("pretext", ["pretext", "--data-parallel", "--stem-root", stem_root, "--epochs", "2",
                                     "--checkpoint", ckpt]),
@@ -2094,7 +1937,7 @@ def _mesh_cli(stats: dict, bank: np.ndarray, smi: str) -> None:
           f"pretext --data-parallel {p}")
     launches, n_items = p["bank_vqt_launches"], p["bank_items"]
     check(n_items == len(bank) and launches == {k: 2 * n_items for k in ("cascade", "octave")},
-          f"pretext --data-parallel bank of {n_items} items (phase 8: {len(bank)}) launched {launches}, "
+          f"pretext --data-parallel bank of {n_items} items (phase 7: {len(bank)}) launched {launches}, "
           "expected 2 of each kernel an item")
     for kname in ("cascade", "octave"):
         stats[kname]["data_parallel_bank_launches_per_item"] = launches[kname] / n_items
@@ -2395,8 +2238,9 @@ def _graph_pool_bytes() -> int:
 
 def _multistep_shape(name, engine, status, dtype, batch, frames, tracks, smi: str) -> None:
     """One K = 8 graph call against 8 eager steps of the same code from the
-    same state (cuDNN deterministic): the 8 losses, outputs and the final
-    parameters bit for bit, or within the step tolerances with the reason.
+    same state (cuDNN deterministic): the 16 losses finite; the 8 losses,
+    outputs and the final parameters bit for bit, or within the step
+    tolerances with the reason.
     ms a step at K = 1: the median of those eager steps, each ended by its
     loss read; at K = 8: the first call less its capture (warm-up and
     record), over 8, the losses read once. The capture's seconds, peak
@@ -2430,6 +2274,7 @@ def _multistep_shape(name, engine, status, dtype, batch, frames, tracks, smi: st
     pool_bytes = _graph_pool_bytes()
     (entry,) = graph.graphs.values()
     check(profiling.totals("multistep.")["captures"] == captures + 1, f"{name}: the first K-step call did not capture")
+    check(all(math.isfinite(v) for v in e_losses + g_losses), f"{name}: loss not finite")
     e_outs = torch.stack(e_outs)
     pairs = [(a, b) for a, b in zip(graph.model.parameters(), eager.model.parameters())]
     bitwise = (g_losses == e_losses and torch.equal(g_outs, e_outs)
@@ -2551,13 +2396,12 @@ def main() -> None:
     stats = {k: {"max_abs_err": 0.0} for k in KERNEL_SOURCES}
     phase_kernels(stats, args.trace)
     phase_conv(stats)
-    pulse = phase_main_path(stats, args.trace)
+    pulse = phase_main_path(stats)
     phase_decode(stats, pulse)
-    phase_throughput()
     ds = phase_train(stats)
     bank = phase_pretext(stats)
     phase_evaluate(ds)
-    phase_separator(stats, args.trace)
+    phase_separator(stats)
     phase_suite(stats)
     phase_mesh(stats, bank, smi)
     phase_multistep(ds, smi)

@@ -1,4 +1,4 @@
-"""Beat This! in the port against the plain reference (reference_torch/beat_this.py)
+"""Beat This! in the port against the plain reference (benchmark/reference/beat_this.py)
 on seeded random weights, on the CPU: the model at a small size, the
 parameter count at the published widths, the log-mel, the chunks, the peak
 picker, ``track_signal(model="beat_this")`` end to end, the weights loader
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from reference_torch import beat_this as ref
+from benchmark.reference import beat_this as ref
 from zeronotesamba_torch import cli
 from zeronotesamba_torch.data import audio_io
 from zeronotesamba_torch.decode.peaks import decode_peaks
@@ -257,8 +257,8 @@ def test_cli_defaults_follow_the_model():
     assert kw["decoder"] == "threshold" and kw["separation"] == "hpss"
 
 
-def test_reference_is_plain_and_the_benchmark_holds_its_copy():
-    path = os.path.join(ROOT, "reference_torch", "beat_this.py")
+def test_reference_is_plain():
+    path = os.path.join(ROOT, "benchmark", "reference", "beat_this.py")
     names = set()
     for node in ast.walk(ast.parse(open(path).read())):
         if isinstance(node, ast.Import):
@@ -266,5 +266,3 @@ def test_reference_is_plain_and_the_benchmark_holds_its_copy():
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module.split(".")[0])
     assert names <= {"__future__", "contextlib", "math", "typing", "numpy", "torch"}
-    with open(path, "rb") as a, open(os.path.join(ROOT, "benchmark", "reference", "beat_this.py"), "rb") as b:
-        assert a.read() == b.read()

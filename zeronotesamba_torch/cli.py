@@ -192,7 +192,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _add_tracking(p: argparse.ArgumentParser) -> None:
     """The model, separation, decoder and device flags of infer and track-dir."""
-    p.add_argument("--model", default="down_cnn", choices=["down_cnn", "beat_this"],
+    from zeronotesamba_torch.infer import TRACKERS
+
+    p.add_argument("--model", default="down_cnn", choices=sorted(TRACKERS),
                    help="down_cnn: the fused Down_CNN; beat_this: Beat This! on the mix (--params: a .ckpt "
                         "in the source's key names)")
     p.add_argument("--separation", default=None, choices=["hpss", "stems", "learned", "mix", "none"],

@@ -122,11 +122,9 @@ def decode_beats(
     if act.size == 0:
         return np.empty(0)
 
-    intervals, firsts, lasts, positions, _, log_trans, is_beat = _state_space(cfg)
+    intervals, firsts, lasts, _, _, log_trans, is_beat = _state_space(cfg)
 
-    eps = np.spacing(1)
-    log_act = np.log(act + eps)
-    log_nact = np.log((1.0 - act) / (cfg.observation_lambda - 1) + eps)
+    log_act, log_nact = _observations(act, cfg)
     on_card = device is not None and torch.device(device).type == "cuda"
     with profiling.span("decode.viterbi"):
         if on_card:
@@ -140,10 +138,22 @@ def decode_beats(
         else:
             path = _viterbi_numpy(log_act, log_nact, intervals, firsts, lasts, log_trans, is_beat)
     profiling.count("dbn.device" if on_card else "dbn.native" if use_native else "dbn.numpy")
+    return _beats(path, act, cfg)
 
-    beat_range = is_beat[path]
+
+def _observations(acts: np.ndarray, cfg: DBNBeatDecoderConfig):
+    """The observation model: the log-probabilities of in-beat and
+    out-of-beat states at each frame of ``acts``, in float64."""
+    eps = np.spacing(1)
+    return np.log(acts + eps), np.log((1.0 - acts) / (cfg.observation_lambda - 1) + eps)
+
+
+def _beats(path: np.ndarray, act: np.ndarray, cfg: DBNBeatDecoderConfig) -> np.ndarray:
+    """Beat times (seconds) of a decoded state path: the activation's peak
+    in each beat window (``cfg.correct``), else the position-wrap frames."""
+    _, _, _, positions, _, _, is_beat = _state_space(cfg)
     if cfg.correct:
-        frames = _argmax_per_run(beat_range, act)
+        frames = _argmax_per_run(is_beat[path], act)
     else:
         frames = np.nonzero(np.diff(positions[path]) < 0)[0] + 1
     return frames / cfg.fps

@@ -27,7 +27,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, _argmax_per_run, _state_space
+from zeronotesamba_torch.decode.dbn import DBNBeatDecoderConfig, _beats, _observations, _state_space
 from zeronotesamba_torch.decode.dbn_native import backtrack_native
 from zeronotesamba_torch.device import resolve_device
 from zeronotesamba_torch.ops.cuda.dbn_kernel import ViterbiSpace, viterbi_forward, viterbi_space
@@ -57,11 +57,6 @@ def viterbi_path_f64(log_act: np.ndarray, log_nact: np.ndarray, cfg: DBNBeatDeco
     return _backtrack(int(out[fc.numel():].view(np.int32)[0]), out[:fc.numel()].reshape(fc.shape[1:]), cfg)
 
 
-def _observations(acts: np.ndarray, cfg: DBNBeatDecoderConfig):
-    eps = np.spacing(1)
-    return np.log(acts + eps), np.log((1.0 - acts) / (cfg.observation_lambda - 1) + eps)
-
-
 def viterbi_forward_device(log_act: np.ndarray, log_nact: np.ndarray,
                            cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(), *, device: str | torch.device = "cuda"):
     """(B, T) float64 observation log-probs -> numpy (v_final (B, S) float32,
@@ -77,15 +72,6 @@ def _backtrack(start_state: int, fcs: np.ndarray, cfg: DBNBeatDecoderConfig) -> 
     (T, n_int) tempo choices: the C++ backtrack (dbn_native.backtrack_native)."""
     _, firsts, lasts, _, _, _, is_beat = _state_space(cfg)
     return backtrack_native(fcs, start_state, firsts, lasts, is_beat.size)
-
-
-def _beats(path: np.ndarray, act: np.ndarray, cfg: DBNBeatDecoderConfig) -> np.ndarray:
-    _, _, _, positions, _, _, is_beat = _state_space(cfg)
-    if cfg.correct:
-        frames = _argmax_per_run(is_beat[path], act)
-    else:
-        frames = np.nonzero(np.diff(positions[path]) < 0)[0] + 1
-    return frames / cfg.fps
 
 
 def viterbi_path_device(activations: np.ndarray, cfg: DBNBeatDecoderConfig = DBNBeatDecoderConfig(), *,

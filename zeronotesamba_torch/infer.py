@@ -58,8 +58,8 @@ class BeatTracker:
     ``params_or_state_dict``: None (random init from ``seed``), a state dict
     in the reference key names (``anchor.pretrained.cv1.weight``, ...), or a
     Flax params tree of numpy arrays (``{'params': {'pretext': ...}}``).
-    ``model``: ``"down_cnn"`` (this tracker) or ``"beat_this"``, for which the
-    call returns a ``BeatThisTracker`` on the other arguments; any other name
+    ``model``: a name in ``TRACKERS``; for another tracker than this one
+    the call returns that tracker on the other arguments; any other name
     raises.
     """
 
@@ -68,10 +68,10 @@ class BeatTracker:
     load_file = staticmethod(load_state_dict_file)
 
     def __new__(cls, *args, model: str = "down_cnn", **kw):
-        if model == "beat_this":
-            return BeatThisTracker(*args, **kw)
-        if model != "down_cnn":
-            raise ValueError(f"unknown model {model!r} (expected down_cnn|beat_this)")
+        if model not in TRACKERS:
+            raise ValueError(f"unknown model {model!r} (expected {'|'.join(sorted(TRACKERS))})")
+        if TRACKERS[model] is not BeatTracker:
+            return TRACKERS[model](*args, **kw)
         return super().__new__(cls)
 
     def __init__(
