@@ -21,7 +21,11 @@ Phases, each printing one JSON line:
                  mesh time rank's (8 x 480 and its halo) shapes: against a
                  float64 conv within float32's rounding bound, the same bits
                  twice, and its times beside the bound, the plain F.conv2d
-                 and cuDNN's per-shape pick (cudnn.benchmark, set only here).
+                 and cuDNN's per-shape pick (cudnn.benchmark, set only here);
+                 then the weight-gradient kernel at each conv and the three
+                 training shapes, the same way against the float64 weight
+                 and bias gradients, the plain convolution_backward and
+                 cuDNN's pick.
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
                  the CPU with the same seeded weights; launch counters; the DBN
                  backend (its forward pass on the card), against the native
@@ -171,6 +175,8 @@ KERNEL_SOURCES = {
     "octave": ("zeronotesamba_torch/csrc/vqt_octave.cu", "zeronotesamba_tpu/ops/pallas/vqt_kernel.py:32"),
     "viterbi": ("zeronotesamba_torch/csrc/dbn_viterbi.cu", "zeronotesamba_tpu/decode/dbn_jax.py:23"),
     "conv": ("zeronotesamba_torch/csrc/conv_fprop.cu", "none: the encoders' convs, which the JAX package leaves to XLA"),
+    "wgrad": ("zeronotesamba_torch/csrc/conv_wgrad.cu",
+              "none: the encoders' convs' weight gradients, which the JAX package leaves to XLA"),
 }
 # Golden activations whose device (float32) beats must equal the float64
 # decode's; on the others (noise, near-silence, short, seeded-weight pulses)
@@ -533,6 +539,73 @@ def phase_conv(stats: dict) -> None:
         emit("conv", part="sum", shape=shape, **tot, fp32_peak_share=tot["bound_ms"] / tot["ms"])
     # One stream's eight convs at the song's shape for the kernels summary.
     stats["conv"].update(totals["song"], bound_by="operations")
+    _conv_wgrad(stats)
+
+
+# The weight gradient's shapes: those of training (fine-tune, pretext, a mesh time rank).
+WGRAD_SHAPES = CONV_SHAPES[1:]
+
+
+def _conv_wgrad(stats: dict) -> None:
+    """The weight-gradient kernel against the float64 weight and bias
+    gradients on the card, at each conv and WGRAD_SHAPES shape: within both
+    bounds of its split sums (ops/cuda/conv_kernel.wgrad_reference: the
+    worst case, gamma(n) times the sum of |t|, and the probable, 7 sqrt(n) u
+    times the root of the sum of t^2, t = gy x, for these independent
+    zero-mean inputs), the same bits twice, and its times beside the card's
+    bound, the plain version (convolution_backward with the mask [False,
+    True, True], cuDNN's heuristic pick, as the port called it before the
+    kernel) and cuDNN's own pick per shape (benchmark mode). The plain
+    version's error against float64 is printed beside the kernel's."""
+    from zeronotesamba_torch.ops.cuda import conv_kernel as ck
+
+    totals = {}
+    for s, (shape, batch, frames, same) in enumerate(WGRAD_SHAPES):
+        for i in range(8):
+            x, w, _, padding = _conv_inputs(i, batch, frames, same, seed=100 + 10 * i + s)
+            cout, cin, kh, kw = w.shape
+            gy = torch.randn(batch, cout, x.shape[2], frames, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(200 + 10 * i + s))
+            gw, gb = ck.wgrad(x, gy, kh, kw, padding, True)
+            gw2, gb2 = ck.wgrad(x, gy, kh, kw, padding, True)
+            plain_w, plain_b = ck.wgrad_plain(x, gy, w, padding, True)
+            layout, plan = ck.wgrad_plan(x, cout, kh, kw, padding)
+            (ref, ref_b), worst, probable = ck.wgrad_reference(x, gy, w.shape, padding, ck.wgrad_chains(layout, plan))
+            torch.cuda.synchronize()
+            check(torch.equal(gw, gw2) and torch.equal(gb, gb2), f"wgrad {i + 1} ({shape}): two runs differ")
+            err, err_b = (gw.double() - ref).abs(), (gb.double() - ref_b).abs()
+            shares = {k: (e / bnd).max().item() for k, e, bnd in
+                      (("worst", err, worst[0]), ("probable", err, probable[0]), ("bias_worst", err_b, worst[1]),
+                       ("bias_probable", err_b, probable[1]))}
+            check(max(shares.values()) <= 1.0, f"wgrad {i + 1} ({shape}): error over its rounding bounds {shares}")
+            flops = 2.0 * gy.numel() * cin * kh * kw
+            n = max(2, min(20, int(2e10 / flops)))
+            times = dict(ms=device_ms(lambda: ck.wgrad(x, gy, kh, kw, padding, True), n=n, reps=3),
+                         plain_ms=device_ms(lambda: ck.wgrad_plain(x, gy, w, padding, True), n=n, reps=3))
+            torch.backends.cudnn.benchmark = True
+            try:
+                times["library_ms"] = device_ms(lambda: ck.wgrad_plain(x, gy, w, padding, True), n=n, reps=3)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            bound_ms, bound_by = bound(4.0 * (x.numel() + gy.numel() + w.numel() + cout), flops)
+            row = dict(part="wgrad", conv=i + 1, shape=shape, batch=batch, cin=cin, cout=cout, h=x.shape[2],
+                       t=x.shape[3], kernel=[kh, kw], padding=list(padding), plan=plan._asdict(), bound_ms=bound_ms,
+                       bound_by=bound_by, **times, fp32_peak_share=bound_ms / times["ms"],
+                       max_abs_err_f64=err.max().item(), max_abs_err_f64_bias=err_b.max().item(),
+                       plain_max_abs_err_f64=(plain_w.double() - ref).abs().max().item(),
+                       plain_max_abs_err_f64_bias=(plain_b.double() - ref_b).abs().max().item(),
+                       rounding_bound_shares=shares, bitwise_repeat=True)
+            emit("conv", **row)
+            tot = totals.setdefault(shape, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0))
+            for k in tot:
+                tot[k] += row[k]
+            stats["wgrad"]["max_abs_err"] = max(stats["wgrad"]["max_abs_err"], row["max_abs_err_f64"])
+            del x, w, gy, gw, gb, gw2, gb2, plain_w, plain_b, ref, ref_b, worst, probable, err, err_b
+        torch.cuda.empty_cache()
+    for shape, tot in totals.items():
+        emit("conv", part="wgrad_sum", shape=shape, **tot, fp32_peak_share=tot["bound_ms"] / tot["ms"])
+    # One stream's eight weight gradients at the fine-tune's shape for the kernels summary.
+    stats["wgrad"].update(totals["finetune"], bound_by="operations")
 
 
 def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
@@ -583,9 +656,9 @@ def phase_main_path(stats: dict) -> None:
     check(dbn_backend == "device", f"main path DBN backend {backends}, expected one device decode")
     stats["cascade"]["launches"] = launches["cascade"]
     stats["octave"]["launches"] = launches["octave"]
-    # Eight encoder convs a stream, two streams, each one conv kernel launch.
+    # Eight encoder convs a stream, two streams, each one conv kernel launch; no weight gradient.
     conv_launches = _counted("conv_launch.", before)
-    check(conv_launches == {"fprop": 16}, f"main path conv launches {conv_launches}")
+    check(conv_launches == {"fprop": 16, "wgrad": 0}, f"main path conv launches {conv_launches}")
     stats["conv"]["launches"] = conv_launches["fprop"]
 
     t0 = time.perf_counter()
@@ -714,11 +787,13 @@ def _etl(stats: dict) -> tuple:
     return ds
 
 
-def _train_step_parity(ds) -> None:
+def _train_step_parity(ds) -> int:
     """One train_step at dropout off on the card and on the CPU from the
-    same seeded pretrained FusedDownstream, on two staged songs."""
+    same seeded pretrained FusedDownstream, on two staged songs; returns the
+    card's weight-gradient launches."""
     from zeronotesamba_torch.train.state import downstream_learning_rate
     from zeronotesamba_torch.train.supervised import StagedDataset, SupervisedConfig, init_state, train_step
+    from zeronotesamba_torch.utils import profiling
 
     cfg = SupervisedConfig(status="pretrained", lr=1e-5, batch_size=2, bucket_frames=PARITY_FRAMES)
     lr = downstream_learning_rate(cfg.status, cfg.pre, cfg.lr)
@@ -729,9 +804,11 @@ def _train_step_parity(ds) -> None:
         b = staged.buckets[t]
         state = init_state(cfg, ds[0], 0, device=dev)
         before = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        counted = profiling.totals()
         t0 = time.perf_counter()
         state, loss, _ = train_step(state, b.vqt, b.pulse, b.mask, None, cfg.status)
         runs[dev] = dict(loss=float(loss), seconds=time.perf_counter() - t0, before=before, frames=t,
+                         conv_launches=_counted("conv_launch.", counted),
                          params={k: v.detach().cpu() for k, v in state.model.named_parameters()},
                          grads={k: v.grad.cpu() for k, v in state.model.named_parameters()})
     g, c = runs["cuda"], runs["cpu"]
@@ -757,11 +834,15 @@ def _train_step_parity(ds) -> None:
     check(0.0 < moved and param_excess <= 0.0, f"train_step params card vs CPU {param_err} > 2 lr ({2 * lr})")
     check(grad_rel[worst] <= PARITY_GRAD_REL,
           f"train_step gradient of {worst} card vs CPU {grad_rel[worst]} of its largest > {PARITY_GRAD_REL}")
+    # Eight convs a stream, two streams: a forward and a weight gradient each on the card, none on the CPU.
+    check(g["conv_launches"] == {"fprop": 16, "wgrad": 16} and c["conv_launches"] == {"fprop": 0, "wgrad": 0},
+          f"train_step conv launches card {g['conv_launches']}, CPU {c['conv_launches']}")
     emit("train", part="step_parity", status=cfg.status, batch=2, frames=g["frames"], lr=lr,
          loss_card=g["loss"], loss_cpu=c["loss"], loss_rel_err=loss_rel, max_param_err=param_err,
          max_param_step=moved, max_grad_err_of_tensor_max=grad_rel[worst], worst_grad=worst,
          grad_rel_limit=PARITY_GRAD_REL, seconds_card=g["seconds"],
-         seconds_cpu=c["seconds"])
+         seconds_cpu=c["seconds"], conv_launches=g["conv_launches"])
+    return g["conv_launches"]["wgrad"]
 
 
 def _experiment(ds) -> None:
@@ -825,7 +906,7 @@ def _train_cli(ds) -> None:
 def phase_train(stats: dict):
     t0 = time.perf_counter()
     ds = _etl(stats)
-    _train_step_parity(ds)
+    stats["wgrad"]["launches"] = _train_step_parity(ds)
     _experiment(ds)
     _train_cli(ds)
     emit("train", part="done", seconds=time.perf_counter() - t0)

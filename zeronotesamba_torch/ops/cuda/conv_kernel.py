@@ -1,4 +1,4 @@
-"""The encoders' float32 conv forward on the card, its plain version, and the wrapper.
+"""The encoders' float32 conv on the card, its plain version, and the wrapper.
 
 ``conv2d(x, w, b, padding)`` computes ``F.conv2d(x, w, b, padding=padding)``
 at stride 1 for a float32 (B, Cin, H, W) input:
@@ -6,15 +6,20 @@ at stride 1 for a float32 (B, Cin, H, W) input:
 - on CPU tensors it is ``F.conv2d`` itself (``conv2d_plain``), so every CPU
   test reads as before;
 - on CUDA tensors it goes through ``ConvFprop``, whose forward launches
-  csrc/conv_fprop.cu and whose backward is cuDNN's
+  csrc/conv_fprop.cu and whose backward launches csrc/conv_wgrad.cu for the
+  weight and bias gradients and leaves the input gradient to cuDNN
   (``aten.convolution_backward``, as ``F.conv2d``'s own backward). It raises
-  on what the kernel does not take; there is no fallback.
+  on what the kernels do not take; there is no fallback.
 
-The kernel replaces no TPU kernel (the JAX package leaves these convs to
-XLA); see the note at the top of its source. ``pick_tiles`` chooses its block
-layout from the shape alone (no timing at run time): output channels a
-thread (8, or 2 or 1 where 8 leave too few blocks to fill the card), rows a
-block, and the ring's stages and input channels a stage. ``profiling.totals("conv_launch.")`` counts launches.
+The kernels replace no TPU kernel (the JAX package leaves these convs to
+XLA); see the notes at the top of their sources. ``pick_tiles`` chooses the
+forward's block layout from the shape alone (no timing at run time): output
+channels a thread (8, or 2 or 1 where 8 leave too few blocks to fill the
+card), rows a block, and the ring's stages and input channels a stage.
+``plan_wgrad`` chooses the weight gradient's split of its long sum, also
+from the shape alone, and ``wgrad_reference`` holds its sums to the float64
+gradients within the rounding of their order. ``profiling.totals("conv_launch.")`` counts launches:
+``fprop`` a forward, ``wgrad`` a weight gradient.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from zeronotesamba_torch.utils import profiling
 
 profiling.count("conv_launch.fprop", 0)
+profiling.count("conv_launch.wgrad", 0)
 
 KERNEL_WIDTHS = (11, 13, 15, 17, 19, 21, 23, 25)  # the kw csrc/conv_fprop.cu is instantiated for
 CO_PER_THREAD = (8, 2, 1)
@@ -44,6 +50,19 @@ THREAD_FRAMES = 8  # consecutive frames a thread owns
 # (conv 7 of a song, 1 x 1,876: 16 blocks at 8 channels take 0.61 ms, 128 at
 # one channel 0.19 ms; NVIDIA H100 80GB HBM3).
 FILL = 0.9
+
+# The weight gradient (csrc/conv_wgrad.cu, whose zns_wgrad_layout gives
+# each shape's blocks, chunks and partial sums).
+WGRAD_WORKSPACE_BYTES = 256 << 20  # the most the splits' partial sums may take
+# A block's fixed cost in chunks of its work: the ring's first stages and
+# the write of its partial sums. Assumed, not fitted; the plans it gives were
+# the fastest of 5 to 8 split counts tried at convs 2, 4, 6 and 7 at 8 x 1,920
+# (conv 4: 1 split 86.83 ms, 5 61.56, 11 60.82 (the plan's), 22 60.93;
+# NVIDIA H100 80GB HBM3).
+SPLIT_COST_CHUNKS = 2
+# The splits the plan tries: up to this many waves of blocks. It bounds the
+# search alone: past a wave, more splits only add their blocks' fixed costs.
+WGRAD_MAX_WAVES = 16
 
 
 class Tiles(NamedTuple):
@@ -102,21 +121,125 @@ def tile_len(kw: int, rows: int) -> int:
     return POSITIONS // rows - THREAD_FRAMES + (kw + THREAD_FRAMES - 1 + 3) // 4 * 4
 
 
+class WgradLayout(NamedTuple):
+    """A shape's layout in csrc/conv_wgrad.cu (zns_wgrad_layout)."""
+    chunks: int  # chunks of the sum over (batch row, output row, frame)
+    blocks: int  # blocks a split
+    floats: int  # weight partial sums a split
+    bias_floats: int  # bias partial sums a split
+    chunk_frames: int  # frames a chunk
+    bias_frames: int  # frames of a chunk each bias partial sums
+
+
+class WgradPlan(NamedTuple):
+    splits: int
+    chunks_per_split: int
+    chunks: int
+    workspace_bytes: int
+
+
+def plan_wgrad(layout: WgradLayout, slots: int) -> WgradPlan:
+    """The weight gradient's split of its sum over (batch row, output row,
+    frame), from the shape's layout alone.
+
+    Split s takes chunks [s c, (s + 1) c) for c chunks a split, and a
+    layout's blocks each split. Of the splits whose partial sums fit in
+    ``WGRAD_WORKSPACE_BYTES``, up to ``WGRAD_MAX_WAVES`` waves of blocks (a
+    wave: ``slots`` blocks, as many as the card holds at once), the one
+    that takes the fewest waves times each block's chunks and
+    ``SPLIT_COST_CHUNKS``; ties to fewer splits."""
+    chunks, base = layout.chunks, layout.blocks
+    split_bytes = 4 * (layout.floats + layout.bias_floats)
+    best = None
+    for splits in range(1, min(chunks, 65535, math.ceil(WGRAD_MAX_WAVES * slots / base)) + 1):
+        per_split = math.ceil(chunks / splits)
+        if math.ceil(chunks / per_split) != splits:  # the same split as fewer splits give
+            continue
+        if splits * split_bytes > WGRAD_WORKSPACE_BYTES:
+            break
+        cost = math.ceil(base * splits / slots) * (per_split + SPLIT_COST_CHUNKS)
+        if best is None or cost < best[0]:
+            best = (cost, WgradPlan(splits, per_split, chunks, splits * split_bytes))
+    if best is None:
+        raise ValueError(f"the weight gradient's partial sums of {layout.floats} floats a split do not fit in "
+                         f"{WGRAD_WORKSPACE_BYTES} bytes")
+    return best[1]
+
+
+def wgrad_chains(layout: WgradLayout, plan: WgradPlan) -> Tuple[int, int]:
+    """The terms of the longest chain of float32 roundings in a weight and
+    in a bias gradient: a thread's FFMA chain over its split's frames from
+    zero, then the splits' partials added in split order (a bias gradient:
+    its 4 partials a split)."""
+    parts = layout.chunk_frames // layout.bias_frames
+    return (plan.chunks_per_split * layout.chunk_frames + plan.splits,
+            plan.chunks_per_split * layout.bias_frames + plan.splits * parts)
+
+
+def wgrad_reference(x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int], padding: Sequence[int],
+                    chains: Tuple[int, int]) -> Tuple[tuple, tuple, tuple]:
+    """The float64 weight and bias gradients of float32 x and gy, and two
+    bounds on the error of sums in float32 (u = 2^-24) whose longest chains
+    of roundings hold ``chains`` = (n_w, n_b) terms t (gy x for a weight,
+    gy for a bias):
+
+    - worst case: gamma(n) = n u / (1 - n u) times the sum of |t|;
+    - probable: 7 sqrt(n) u times the root of the sum of t^2. A chain's
+      error is the sum of its roundings delta_k S_k, |delta_k| <= u, over
+      its partial sums S_k; for independent zero-mean terms (the tests'
+      Gaussian inputs) the expected sum of S_k^2 stays within n times the
+      sum of t^2, and by Azuma-Hoeffding an error beyond 7 u times its root
+      has probability at most 2 exp(-7^2 / 2) = 4.6e-11.
+
+    Returns ((gw, gb), (worst_w, worst_b), (probable_w, probable_b)), each
+    a float64 tensor on x's device."""
+    u = 2.0 ** -24
+    xd, gd = x.double(), gy.double()
+    dims = (0, 2, 3)
+
+    def terms(fx, fg):
+        return torch.nn.grad.conv2d_weight(fx(xd), w_shape, fg(gd), padding=tuple(padding)), fg(gd).sum(dims)
+
+    ref = terms(lambda t: t, lambda t: t)
+    worst = [n * u / (1 - n * u) * a for n, a in zip(chains, terms(torch.abs, torch.abs))]
+    probable = [7.0 * math.sqrt(n) * u * a.sqrt() for n, a in zip(chains, terms(torch.square, torch.square))]
+    return ref, tuple(worst), tuple(probable)
+
+
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, padding: Sequence[int]) -> torch.Tensor:
     """The plain version: ``F.conv2d`` at stride 1."""
     return F.conv2d(x, w, b, padding=tuple(padding))
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+def backward_plain(gy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, padding: Sequence[int], bias: bool,
+                   mask: Sequence[bool]) -> tuple:
+    """The input, weight and bias gradients the mask asks for (the others
+    None) at stride 1: ``aten.convolution_backward``, as ``F.conv2d``'s
+    autograd computes them."""
+    return torch.ops.aten.convolution_backward(gy, x, w, [w.shape[0]] if bias else None, [1, 1], list(padding),
+                                               [1, 1], False, [0, 0], 1, list(mask))
+
+
+def wgrad_plain(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor, padding: Sequence[int],
+                bias: bool) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """The plain weight and bias gradients (the bias's None unless ``bias``):
+    ``backward_plain`` with the mask [False, True, bias]."""
+    return backward_plain(gy, x, w, padding, bias, [False, True, bias])[1:]
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FPROP_ARGS = (_P, _P, _P, _P) + (_I,) * 13 + (_P,)
 _OCCUPANCY_ARGS = (_I,) * 6 + (ctypes.POINTER(_I), ctypes.POINTER(_I))
+_WGRAD_ARGS = (_P,) * 6 + (_I,) * 9 + (_L, _L, _P)
+_WGRAD_OCCUPANCY_ARGS = (_I, ctypes.POINTER(_I), ctypes.POINTER(_I))
+_WGRAD_LAYOUT_ARGS = (_I,) * 9 + (ctypes.POINTER(_L),)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
+def _entry(symbol: str, argtypes: tuple, library: str = "conv_fprop") -> ctypes._CFuncPtr:
     from zeronotesamba_torch.ops.cuda.build import load
 
-    fn = getattr(load("conv_fprop"), symbol)
+    fn = getattr(load(library), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -183,9 +306,85 @@ def launch(x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor | None, padding: T
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _wgrad_occupancy(device_index: int, kw: int) -> int:
+    """Blocks an SM of the card holds of the weight-gradient kernel for width kw."""
+    fn = _entry("zns_wgrad_occupancy", _WGRAD_OCCUPANCY_ARGS, "conv_wgrad")
+    smem, blocks = _I(0), _I(0)
+    with torch.cuda.device(device_index):
+        _raise_on(fn(kw, ctypes.byref(smem), ctypes.byref(blocks)), "weight-gradient kernel occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the weight-gradient kernel for kw={kw} fits no block on an SM")
+    return blocks.value
+
+
+def wgrad_layout(batch: int, cin: int, h: int, w: int, cout: int, kh: int, kw: int, ph: int, pw: int) -> WgradLayout:
+    """The weight-gradient kernel's layout of a shape (x (batch, cin, h, w),
+    cout x kh x kw, padding (ph, pw)), as csrc/conv_wgrad.cu reports it."""
+    fn = _entry("zns_wgrad_layout", _WGRAD_LAYOUT_ARGS, "conv_wgrad")
+    out = (_L * 6)()
+    if fn(batch, cin, h, w, cout, kh, kw, ph, pw, out) != 0:
+        raise ValueError(f"the weight-gradient kernel does not take x ({batch}, {cin}, {h}, {w}), "
+                         f"{cout}x{kh}x{kw}, padding ({ph}, {pw})")
+    return WgradLayout(*out)
+
+
+@functools.lru_cache(maxsize=256)
+def _wgrad_plan(device_index: int, shape: tuple, cout: int, kh: int, kw: int,
+                padding: tuple) -> Tuple[WgradLayout, WgradPlan]:
+    layout = wgrad_layout(*shape, cout, kh, kw, *padding)
+    slots = torch.cuda.get_device_properties(device_index).multi_processor_count * _wgrad_occupancy(device_index, kw)
+    return layout, plan_wgrad(layout, slots)
+
+
+def wgrad_plan(x: torch.Tensor, cout: int, kh: int, kw: int,
+               padding: Sequence[int]) -> Tuple[WgradLayout, WgradPlan]:
+    """The layout and the split ``wgrad`` takes for x on its card."""
+    idx = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return _wgrad_plan(idx, tuple(x.shape), cout, kh, kw, tuple(padding))
+
+
+def wgrad(x: torch.Tensor, gy: torch.Tensor, kh: int, kw: int, padding: Tuple[int, int],
+          bias: bool) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """The weight and bias gradients (the bias's None unless ``bias``) of the
+    conv at stride 1 on CUDA tensors: x (B, Cin, H, W) and gy (B, Cout,
+    H_out, W_out), float32 contiguous. One launch of csrc/conv_wgrad.cu and
+    its reduction over the splits, into partial sums from the caching
+    allocator."""
+    batch, cin, h, wd = x.shape
+    cout = gy.shape[1]
+    if kw not in KERNEL_WIDTHS:
+        raise ValueError(f"the weight-gradient kernel is built for kernel widths {KERNEL_WIDTHS}, got {kw}")
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"the weight-gradient kernel takes 1 to 65535 batch rows, got {batch}")
+    if not x.is_cuda or gy.device != x.device or x.dtype != torch.float32 or gy.dtype != torch.float32:
+        raise ValueError("x and gy must be float32 on one card")
+    h_out, w_out = output_size(h, wd, kh, kw, padding)
+    if not (x.is_contiguous() and gy.is_contiguous()) or gy.shape != (batch, cout, h_out, w_out):
+        raise ValueError(f"the weight-gradient kernel takes contiguous x and gy; got x {tuple(x.shape)}, gy "
+                         f"{tuple(gy.shape)} for {kh}x{kw}, padding {padding}")
+    layout, plan = wgrad_plan(x, cout, kh, kw, padding)
+    part = torch.empty(plan.splits * layout.floats, dtype=torch.float32, device=x.device)
+    gw = torch.empty((cout, cin, kh, kw), dtype=torch.float32, device=x.device)
+    gb = bias_part = None
+    if bias:
+        gb = torch.empty(cout, dtype=torch.float32, device=x.device)
+        bias_part = torch.empty(plan.splits * layout.bias_floats, dtype=torch.float32, device=x.device)
+    fn = _entry("zns_conv_wgrad", _WGRAD_ARGS, "conv_wgrad")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), gy.data_ptr(), part.data_ptr(), None if bias_part is None else bias_part.data_ptr(),
+                 gw.data_ptr(), None if gb is None else gb.data_ptr(), batch, cin, h, wd, cout, kh, kw, padding[0],
+                 padding[1], plan.chunks_per_split, part.numel(), stream)
+    _raise_on(err, "weight-gradient kernel launch")
+    profiling.count("conv_launch.wgrad")
+    return gw, gb
+
+
 class ConvFprop(torch.autograd.Function):
-    """The conv at stride 1: the kernel's forward (the plain version for CPU
-    tensors) and cuDNN's backward, as ``F.conv2d``'s autograd computes it."""
+    """The conv at stride 1, as ``F.conv2d``'s autograd computes it: on CUDA
+    tensors the kernels' forward, weight and bias gradients and cuDNN's input
+    gradient; on CPU tensors the plain forward and ``convolution_backward``."""
 
     @staticmethod
     def forward(ctx, x, w, b, padding):
@@ -199,10 +398,11 @@ class ConvFprop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.has_bias and ctx.needs_input_grad[2]]
-        gx, gw, gb = torch.ops.aten.convolution_backward(
-            gy, x, w, [w.shape[0]] if ctx.has_bias else None, [1, 1], list(ctx.padding), [1, 1], False, [0, 0], 1,
-            mask)
+        need_x, need_w, need_b = ctx.needs_input_grad[:2] + (ctx.has_bias and ctx.needs_input_grad[2],)
+        if not (x.is_cuda and need_w):
+            return (*backward_plain(gy, x, w, ctx.padding, ctx.has_bias, [need_x, need_w, need_b]), None)
+        gx = backward_plain(gy, x, w, ctx.padding, ctx.has_bias, [True, False, False])[0] if need_x else None
+        gw, gb = wgrad(x, gy.contiguous(), w.shape[2], w.shape[3], ctx.padding, need_b)
         return gx, gw, gb, None
 
 
