@@ -65,7 +65,11 @@ Phases, each printing one JSON line:
                  the train-separator CLI, and the learned serving path: a 30 s
                  click track through track_signal(separation="learned") on the
                  card and the CPU, launches counted, the DBN's three decodes
-                 of its pulse, and infer / track-dir --separation learned.
+                 of its pulse, and infer / track-dir --separation learned;
+                 then one untimed track_signal(separation="spleeter") of a
+                 30 s click track at 44.1 kHz at Spleeter's published
+                 widths, its magnitude, masks and streams against the plain
+                 reference (benchmark/reference/spleeter.py).
 10. suite     -- run_demo_suite at a small size on the card (launches counted;
                  finite results, F1 in [0, 1], the JAX suite's key tree), the
                  export-xlsx CLI on its output, resample_device card vs CPU, and
@@ -1700,6 +1704,58 @@ def _separator_serving(stats: dict) -> None:
                   track_dir_seconds=track_dir_s))
 
 
+def _separator_spleeter() -> None:
+    """The Spleeter serving path, untimed (the spleeter-etl-30s cell times
+    it): a 30 s click track at 44.1 kHz through
+    track_signal(separation="spleeter") at the published widths (the
+    backend's seeded weights), its counters, and its magnitude, masks and
+    16 kHz streams (``Spleeter.last``) against the plain reference
+    (benchmark/reference/spleeter.py) within that cell's limits; a second
+    call, which replays the stages' CUDA graphs, gives the same magnitude
+    and masks and streams within those limits."""
+    from benchmark.reference import spleeter as ref
+    from zeronotesamba_torch.data.separation import _spleeter_model
+    from zeronotesamba_torch.data.synthetic import click_track
+    from zeronotesamba_torch.infer import BeatTracker
+    from zeronotesamba_torch.models.weights import spleeter_source_from_state_dict
+    from zeronotesamba_torch.utils import profiling
+
+    with open(os.path.join(ROOT, "benchmark", "configs", "spleeter_4stems.json")) as fh:
+        cfg = json.load(fh)
+    with open(os.path.join(ROOT, "benchmark", "limits", "spleeter-etl-30s.json")) as fh:
+        limits = json.load(fh)
+    sig, _ = click_track(30.0, 120.0, sr=44100, seed=0)
+    tracker = BeatTracker(seed=0, device="cuda")
+    before = profiling.totals()
+    res = tracker.track_signal(sig, 44100, separation="spleeter", decoder="dbn")
+    counted = _counted("spleeter.", before)
+    check(counted == {"segments": 3, "unet_launch": 4}, f"spleeter path counters {counted}")
+    model = _spleeter_model(None, "cuda")
+    last = model.last
+    w = {k: torch.as_tensor(v, device="cuda")
+         for k, v in spleeter_source_from_state_dict(model.state_dict(), model.cfg.instruments).items()}
+    spec = ref.stft(sig, cfg, "cuda")
+    mag = ref.magnitude(spec, cfg, torch.float64)
+    streams = ref.streams(spec, last["masks"], len(sig), cfg)
+    got = last["streams"].double()
+    gaps = {"spec_gap": float((last["magnitude"].double() - mag).abs().max() / mag.max()),
+            "mask_gap": float((last["masks"] - ref.masks(w, last["magnitude"], cfg)).abs().max()),
+            "stream_gap": float(((got - streams).abs().amax(-1) / streams.abs().amax(-1)).max())}
+    check(all(gaps[k] <= limits[k] for k in gaps), f"spleeter path against the reference {gaps} (limits {limits})")
+    check(res.vqt.shape == (2, 96, 1876) and bool(np.isfinite(res.vqt).all()) and len(res.beat_times) > 0,
+          "spleeter path output")
+    # The first call ran the stages and captured them; the second replays the graphs.
+    first = {k: v.clone() for k, v in last.items()}
+    model.separate(sig, 44100)
+    replay_gap = {k: float((model.last[k] - first[k]).abs().max() / first[k].abs().max()) for k in first}
+    # cuDNN's data-gradient sums may add in another order; the STFT's do not.
+    check(replay_gap["magnitude"] == 0.0 and replay_gap["masks"] <= limits["mask_gap"]
+          and replay_gap["streams"] <= limits["stream_gap"],
+          f"spleeter graph replay against its eager call {replay_gap}")
+    emit("separator", part="spleeter", clip_s=30.0, sample_rate=44100, counters=counted, gaps=gaps,
+         replay_gap=replay_gap, n_beats=len(res.beat_times), parameters=sum(t.numel() for t in w.values()))
+
+
 def phase_separator(stats: dict) -> None:
     t0 = time.perf_counter()
     _separator_step_parity()
@@ -1707,6 +1763,7 @@ def phase_separator(stats: dict) -> None:
     _separator_quality()
     _separator_train()
     _separator_serving(stats)
+    _separator_spleeter()
     emit("separator", part="done", seconds=time.perf_counter() - t0)
 
 

@@ -77,8 +77,9 @@ def test_separation_backends(tmp_path):
     assert anchor.shape == positive.shape == sig.shape
     with pytest.raises(ValueError):
         separate(sig, 16000, backend="stems", device="cpu")
+    # spleeter is a backend of the port's own (tests/test_torch_spleeter.py); an unknown name raises.
     with pytest.raises(ValueError):
-        separate(sig, 16000, backend="spleeter", device="cpu")
+        separate(sig, 16000, backend="demucs", device="cpu")
 
 
 def test_resample_and_wav_io_match_jax(tmp_path):

@@ -42,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("dataset", choices=["ballroom", "gtzan", "hainsworth", "smc", "synthetic"])
     b.add_argument("--root", required=False, help="dataset root directory")
     b.add_argument("--out", required=True, help="output cache directory")
-    b.add_argument("--separation", default="none", choices=["none", "hpss", "stems", "mix"])
+    b.add_argument("--separation", default="none", choices=["none", "hpss", "spleeter", "stems", "mix"],
+                   help="spleeter reads each song at 44.1 kHz")
     b.add_argument("--n-songs", type=int, default=16, help="synthetic only")
     b.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
@@ -197,11 +198,13 @@ def _add_tracking(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default="down_cnn", choices=sorted(TRACKERS),
                    help="down_cnn: the fused Down_CNN; beat_this: Beat This! on the mix (--params: a .ckpt "
                         "in the source's key names)")
-    p.add_argument("--separation", default=None, choices=["hpss", "stems", "learned", "mix", "none"],
-                   help="default hpss (down_cnn), none (beat_this, which takes no other)")
+    p.add_argument("--separation", default=None, choices=["hpss", "stems", "learned", "spleeter", "mix", "none"],
+                   help="default hpss (down_cnn), none (beat_this, which takes no other); spleeter reads the "
+                        "file at 44.1 kHz")
     p.add_argument("--sep-model", default=None,
                    help="mask-net params for --separation learned, an .npz of its Flax tree "
-                        "(default: the shipped zeronotesamba_torch/assets/separator.npz)")
+                        "(default: the shipped zeronotesamba_torch/assets/separator.npz); Spleeter's weights "
+                        "for --separation spleeter, an .npz under the source's variable names (default: seeded)")
     p.add_argument("--decoder", default=None, choices=["dbn", "librosa", "threshold", "peaks"],
                    help="default dbn (down_cnn), peaks (beat_this, which takes no other)")
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
@@ -215,7 +218,10 @@ def _tracker(args) -> tuple:
 
     cls = TRACKERS[args.model]
     tracker = cls(cls.load_file(args.params) if args.params else None, device=args.device)
-    return tracker, {k: v if getattr(args, k) is None else getattr(args, k) for k, v in cls.TRACK_DEFAULTS.items()}
+    kw = {k: v if getattr(args, k) is None else getattr(args, k) for k, v in cls.TRACK_DEFAULTS.items()}
+    if kw.get("separation") == "spleeter":
+        kw["sep_model"] = args.sep_model  # the shipped default is the learned backend's
+    return tracker, kw
 
 
 def main(argv=None):

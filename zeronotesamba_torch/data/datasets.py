@@ -34,7 +34,9 @@ from zeronotesamba_torch.data.annotations import (
     parse_smc_beats,
 )
 from zeronotesamba_torch.data.pulse import beat_pulse
+from zeronotesamba_torch.models.spleeter import SAMPLE_RATE as SPLEETER_RATE  # the rate Spleeter reads songs at
 from zeronotesamba_torch.ops.vqt import generate_xqt
+from zeronotesamba_torch.utils import profiling
 
 SAMPLE_RATE = 16000
 FPS = 62.5
@@ -149,20 +151,35 @@ def build_record(
     signal: np.ndarray,
     ann: BeatAnnotation,
     *,
+    sr: int = SAMPLE_RATE,
     separation: str = "none",
     stem_dir: Optional[str] = None,
+    sep_model=None,
     mode: str = "vqt",
     device: str = "cuda",
 ) -> SongRecord:
-    """Signal + annotation -> SongRecord (optionally two-stream)."""
-    if separation == "none":
-        streams = [signal]
-    else:
-        from zeronotesamba_torch.data.separation import separate
+    """Signal at ``sr`` + annotation -> SongRecord (optionally two-stream).
 
-        anchor, positive = separate(signal, SAMPLE_RATE, backend=separation, stem_dir=stem_dir, device=device)
-        streams = [anchor, positive]
-    vqts = np.stack([generate_xqt(s, SAMPLE_RATE, mode, device=device) for s in streams])
+    ``spleeter`` separates the song at its own rate (at 44,100 Hz, as the
+    reference's ETL) and hands on 16 kHz streams; every other path resamples
+    to 16 kHz on the host first. ``sep_model``: for ``spleeter``, a weights
+    file (``.npz``) or a loaded ``models/spleeter.Spleeter``. Spans
+    ``record`` (a request) and ``record.separate``."""
+    with profiling.span("record", request=True):
+        if separation != "spleeter" and sr != SAMPLE_RATE:
+            from zeronotesamba_torch.ops.resample import resample_poly_host
+
+            signal, sr = resample_poly_host(signal, sr, SAMPLE_RATE), SAMPLE_RATE
+        if separation == "none":
+            streams = [signal]
+        else:
+            from zeronotesamba_torch.data.separation import separate
+
+            loaded = sep_model is not None and not isinstance(sep_model, str)
+            given = {"model": sep_model} if loaded else {"model_path": sep_model}
+            with profiling.span("record.separate"):
+                streams = list(separate(signal, sr, backend=separation, stem_dir=stem_dir, device=device, **given))
+        vqts = np.stack([generate_xqt(s, SAMPLE_RATE, mode, device=device) for s in streams])
     n_frames = vqts.shape[-1]
     return SongRecord(
         name=name,
@@ -180,9 +197,10 @@ def _iter_build(
     device: str,
 ) -> BeatDataset:
     ds = BeatDataset()
+    rate = SPLEETER_RATE if separation == "spleeter" else SAMPLE_RATE
     for name, wav_path, ann in items:
-        sig, _ = audio_io.load_audio(wav_path, target_sr=SAMPLE_RATE)
-        ds.add(build_record(name, sig, ann, separation=separation, device=device))
+        sig, _ = audio_io.load_audio(wav_path, target_sr=rate)
+        ds.add(build_record(name, sig, ann, sr=rate, separation=separation, device=device))
     return ds
 
 

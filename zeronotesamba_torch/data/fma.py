@@ -3,7 +3,8 @@
 Capability parity with the reference's FMA ETL (fma_loader.py):
 
 - ``mine_stems``: walk an audio corpus in sorted order, separate each track
-  (data/separation.separate; HPSS on ``device``), RMS-gate the drum stem
+  (data/separation.separate: HPSS, or any backend, on ``device``; Spleeter
+  as the reference, on the track at 44.1 kHz), RMS-gate the drum stem
   (reference drum_load, fma_loader.py:153-175) and write
   ``<out>/<track_id>/{drums,other}.wav`` at 16 kHz (fma_loader.py:129-148).
   Resumable through a JSON watermark, ``<out>/.mined.json``, in place of the
@@ -29,6 +30,7 @@ import torch
 from zeronotesamba_torch.data import audio_io
 from zeronotesamba_torch.data.stems import rms_gate
 from zeronotesamba_torch.device import resolve_device
+from zeronotesamba_torch.models.spleeter import SAMPLE_RATE as SPLEETER_RATE  # the rate Spleeter reads songs at
 from zeronotesamba_torch.ops.vqt import generate_xqt
 from zeronotesamba_torch.utils.logging import get_logger
 
@@ -73,6 +75,7 @@ def mine_stems(
     from zeronotesamba_torch.data.separation import separate
 
     dev = resolve_device(device)
+    rate = SPLEETER_RATE if separation == "spleeter" else SAMPLE_RATE
     os.makedirs(out_root, exist_ok=True)
     done = load_watermark(out_root)
     written = []
@@ -86,11 +89,11 @@ def mine_stems(
             if limit is not None and len(written) >= limit:
                 return written
             try:
-                sig, _ = audio_io.load_audio(os.path.join(dirpath, f), target_sr=SAMPLE_RATE)
-                if len(sig) < min_len_s * SAMPLE_RATE:
+                sig, _ = audio_io.load_audio(os.path.join(dirpath, f), target_sr=rate)
+                if len(sig) < min_len_s * rate:
                     log.info("too short: %s", tid)
                 else:
-                    anchor, positive = separate(sig, SAMPLE_RATE, backend=separation, device=dev)
+                    anchor, positive = separate(sig, rate, backend=separation, device=dev)
                     if not rms_gate(anchor, positive, lower_p, upper_p):
                         log.info("gate rejected %s", tid)
                     else:

@@ -8,7 +8,14 @@ Port of zeronotesamba_tpu/data/separation.py with the backends
 - ``learned``: the trained STFT-mask separator (models/separator.py, trained
   by train/separator.py) on ``device``, from an ``.npz`` of its Flax tree
   (the shipped ``models/separator.SEPARATOR_NPZ`` by default on the CLI);
+- ``spleeter``: Spleeter 4stems (models/spleeter.py) on ``device``: the
+  song at its own rate in, (anchor, positive) at 16 kHz out, whatever
+  ``sr``; its weights from ``model_path``, an ``.npz`` under the source's
+  variable names (``models/weights.load_spleeter_file``), or seeded (seed 0)
+  without one, or the loaded ``model`` a caller passes;
 - ``mix``: anchor = positive = mix.
+
+Every other backend returns the streams at ``sr``.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import os
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from zeronotesamba_torch.data import audio_io
 from zeronotesamba_torch.data.stems import fold_stems
@@ -38,6 +46,7 @@ def load_stem_dir(track_dir: str, target_sr: int = 16000) -> Dict[str, np.ndarra
 
 
 _LEARNED_MODEL_CACHE: Dict[tuple, object] = {}
+_SPLEETER_CACHE: Dict[tuple, object] = {}
 
 
 def _learned_model(model_path: str, device):
@@ -52,6 +61,26 @@ def _learned_model(model_path: str, device):
     return _LEARNED_MODEL_CACHE[key]
 
 
+def _spleeter_model(model_path: str | None, device):
+    """Spleeter from ``model_path`` (seeded, seed 0, for None) on ``device``,
+    loaded once per (path, device)."""
+    from zeronotesamba_torch.device import resolve_device
+    from zeronotesamba_torch.models.spleeter import Spleeter
+    from zeronotesamba_torch.models.weights import load_spleeter_file
+
+    dev = resolve_device(device)
+    key = (model_path and os.path.abspath(model_path), str(dev))
+    if key not in _SPLEETER_CACHE:
+        if model_path is None:
+            model = Spleeter()
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            model = model.to(dev).eval()
+        else:
+            model = load_spleeter_file(key[0], dev)
+        _SPLEETER_CACHE[key] = model
+    return _SPLEETER_CACHE[key]
+
+
 def separate(
     signal: np.ndarray,
     sr: int,
@@ -59,9 +88,15 @@ def separate(
     *,
     stem_dir: str | None = None,
     model_path: str | None = None,
+    model=None,
     device: str = "cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Return (anchor, positive) streams for a mono signal."""
+    """Return (anchor, positive) streams for a mono signal (at 16 kHz for
+    ``spleeter``, at ``sr`` for the rest)."""
+    if backend == "spleeter":
+        if model is None:
+            model = _spleeter_model(model_path, device)
+        return model.separate(signal, sr)
     if backend == "stems":
         if stem_dir is None:
             raise ValueError("backend='stems' requires stem_dir")
@@ -81,4 +116,4 @@ def separate(
     if backend == "mix":
         sig = np.asarray(signal, dtype=np.float32)
         return sig, sig.copy()
-    raise ValueError(f"unknown separation backend {backend!r} (stems|hpss|learned|mix)")
+    raise ValueError(f"unknown separation backend {backend!r} (stems|hpss|learned|spleeter|mix)")

@@ -1,7 +1,8 @@
 """One-call inference API (the reference sample_script.py as a library).
 
 Port of zeronotesamba_tpu/infer.py. Pipeline: audio -> (anchor, positive)
-streams via a separation backend -> 16 kHz -> batched log-VQT on the device
+streams via a separation backend -> 16 kHz (``spleeter`` separates the song
+at its own rate and resamples its streams) -> batched log-VQT on the device
 (the two Hopper kernels on a card) -> twin encoders -> per-stream and fused
 per-frame pulse -> optional beat decode on the host.
 
@@ -27,6 +28,7 @@ from zeronotesamba_torch.device import disable_tf32, resolve_device
 from zeronotesamba_torch.models import beat_this
 from zeronotesamba_torch.models.encoder import FusedDownstream
 from zeronotesamba_torch.models.separator import SEPARATOR_NPZ
+from zeronotesamba_torch.models.spleeter import SAMPLE_RATE as SPLEETER_RATE  # the rate Spleeter reads songs at
 from zeronotesamba_torch.models.weights import (load_beat_this_file, load_beat_this_state_dict, load_state_dict_file,
                                                 load_weights, reference_state_dict)
 from zeronotesamba_torch.ops import mel
@@ -111,12 +113,13 @@ class BeatTracker:
     ) -> InferenceResult:
         with profiling.span("track", request=True):
             sig = np.asarray(signal, dtype=np.float32)
-            if sr != SAMPLE_RATE:
+            # Spleeter separates the song at its own rate and hands on 16 kHz streams.
+            if sr != SAMPLE_RATE and separation != "spleeter":
                 from zeronotesamba_torch.ops.resample import resample_poly_host
 
-                sig = resample_poly_host(sig, sr, SAMPLE_RATE)
+                sig, sr = resample_poly_host(sig, sr, SAMPLE_RATE), SAMPLE_RATE
             with profiling.span("track.separate"):
-                anchor, positive = separate(sig, SAMPLE_RATE, backend=separation, stem_dir=stem_dir,
+                anchor, positive = separate(sig, sr, backend=separation, stem_dir=stem_dir,
                                             model_path=sep_model, device=self.device)
             params = XQTParams(sample_rate=SAMPLE_RATE, mode=mode)
             with torch.inference_mode():
@@ -140,8 +143,9 @@ class BeatTracker:
         )
 
     def track_file(self, path: str, **kw) -> InferenceResult:
-        sig, _ = audio_io.load_audio(path, target_sr=SAMPLE_RATE)
-        return self.track_signal(sig, SAMPLE_RATE, **kw)
+        rate = SPLEETER_RATE if kw.get("separation") == "spleeter" else SAMPLE_RATE
+        sig, _ = audio_io.load_audio(path, target_sr=rate)
+        return self.track_signal(sig, rate, **kw)
 
 
 @dataclasses.dataclass

@@ -31,6 +31,16 @@ joined by ``/`` (``params/Conv_0/kernel``, ...), float32: what the exporter
 in tests/test_torch_separator_export.py writes from an orbax checkpoint, and
 ``np.savez(path, **flatten_flax(tree))`` writes. ``load_state_dict_file``
 reads such a file through ``state_dict_from_jax``.
+
+Spleeter's four nets (models/spleeter.py) carry the source's TensorFlow
+variable names: Keras names every layer of the graph in order of creation,
+so instrument ``i``'s six convs and its head are ``conv2d_{7i}`` ..
+``conv2d_{7i+6}``, its transposed convs ``conv2d_transpose_{6i}`` ..
+``_{6i+5}`` and its BatchNorms ``batch_normalization_{12i}`` .. ``_{12i+11}``
+(``conv2d`` for index 0), each with ``kernel`` (kh, kw, in, out; a
+transposed conv's (kh, kw, out, in)) and ``bias``, or ``gamma``, ``beta``,
+``moving_mean`` and ``moving_variance``. ``save_spleeter_file`` and
+``load_spleeter_file`` keep them in an ``.npz`` under those names.
 """
 
 from __future__ import annotations
@@ -227,3 +237,69 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
             sd = sd.state_dict()
         return {k: torch.as_tensor(v) for k, v in sd.items()}
     raise ValueError(f"{path}: expected a .pth or .npz state dict")
+
+
+_BN_LEAVES = {"weight": "gamma", "bias": "beta", "running_mean": "moving_mean", "running_var": "moving_variance"}
+
+
+def _keras(base: str, index: int) -> str:
+    return base if index == 0 else f"{base}_{index}"
+
+
+def spleeter_source_names(instruments) -> Dict[str, str]:
+    """``Spleeter``'s state-dict key -> the source's variable name (module docstring)."""
+    names = {}
+    for i, inst in enumerate(instruments):
+        layers = [(f"enc.{j}", _keras("conv2d", 7 * i + j)) for j in range(6)]
+        layers += [("head", _keras("conv2d", 7 * i + 6))]
+        layers += [(f"dec.{j}", _keras("conv2d_transpose", 6 * i + j)) for j in range(6)]
+        for ours, theirs in layers:
+            names[f"nets.{inst}.{ours}.weight"] = f"{theirs}/kernel"
+            names[f"nets.{inst}.{ours}.bias"] = f"{theirs}/bias"
+        for j in range(12):
+            ours = f"enc_bn.{j}" if j < 6 else f"dec_bn.{j - 6}"
+            for leaf, theirs in _BN_LEAVES.items():
+                names[f"nets.{inst}.{ours}.{leaf}"] = f"{_keras('batch_normalization', 12 * i + j)}/{theirs}"
+    return names
+
+
+def spleeter_state_dict_from_source(weights: Mapping[str, Any], instruments) -> Dict[str, torch.Tensor]:
+    """The source's variables (its names and layouts) -> ``Spleeter``'s
+    state dict: kernels (kh, kw, a, b) -> (b, a, kh, kw), the rest as they
+    are, BatchNorm's ``num_batches_tracked`` added."""
+    sd = {}
+    for ours, theirs in spleeter_source_names(instruments).items():
+        a = torch.as_tensor(weights[theirs], dtype=torch.float32)
+        sd[ours] = a.permute(3, 2, 0, 1).contiguous() if theirs.endswith("/kernel") else a
+        if ours.endswith(".running_var"):
+            sd[ours[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def spleeter_source_from_state_dict(sd: Mapping[str, torch.Tensor], instruments) -> Dict[str, np.ndarray]:
+    """The inverse of ``spleeter_state_dict_from_source``: float32 numpy arrays."""
+    out = {}
+    for ours, theirs in spleeter_source_names(instruments).items():
+        a = sd[ours].detach().cpu().numpy().astype(np.float32)
+        out[theirs] = a.transpose(2, 3, 1, 0) if theirs.endswith("/kernel") else a
+    return out
+
+
+def save_spleeter_file(path: str, model: nn.Module) -> None:
+    """A ``Spleeter``'s weights to an ``.npz`` under the source's names."""
+    np.savez(path, **spleeter_source_from_state_dict(model.state_dict(), model.cfg.instruments))
+
+
+def load_spleeter_file(path: str, device="cpu") -> nn.Module:
+    """An ``.npz`` of the source's variables (``save_spleeter_file``'s, or a
+    published checkpoint's under the same names) -> a ``Spleeter`` in eval
+    mode on ``device``, its widths read from the file."""
+    from zeronotesamba_torch.models.spleeter import INSTRUMENTS, Spleeter, SpleeterConfig
+
+    if not path.endswith(".npz"):
+        raise ValueError(f"{path}: expected an .npz of Spleeter's variables")
+    with np.load(path) as data:
+        sd = spleeter_state_dict_from_source({k: data[k] for k in data.files}, INSTRUMENTS)
+    model = Spleeter(SpleeterConfig.from_state_dict(sd))
+    model.load_state_dict(sd)
+    return model.to(device).eval()

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from zeronotesamba_torch.device import resolve_device
 from zeronotesamba_torch.ops.filterbank import XQTParams, halfband_decimation_filter, octave_kernel_bank
+from zeronotesamba_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=8)
@@ -115,12 +116,12 @@ def generate_xqt(signal: np.ndarray, sample_rate: int, mode: str, device: str = 
     """Reference-API front end (input_rep.generate_XQT parity).
 
     Accepts a mono numpy signal, returns ``(96, T)`` float32 log-magnitudes
-    computed on ``device``.
+    computed on ``device`` (the copies counted as ``h2d_bytes`` and ``d2h_syncs``).
     """
     if mode not in ("vqt", "cqt"):
         raise ValueError("Mode can only be vqt or cqt!")
     params = XQTParams(sample_rate=sample_rate, mode=mode)
-    y = torch.as_tensor(np.asarray(signal, dtype=np.float32), device=resolve_device(device))[None, :]
+    y = profiling.to_device(np.asarray(signal, dtype=np.float32), resolve_device(device))[None, :]
     with torch.inference_mode():
         out = best_log_xqt(y, params)
-    return out[0].cpu().numpy()
+    return profiling.to_host(out[0])
