@@ -26,6 +26,13 @@ Phases, each printing one JSON line:
                  training shapes, the same way against the float64 weight
                  and bias gradients, the plain convolution_backward and
                  cuDNN's pick.
+   deconv     -- Spleeter's decoder kernel at each of a U-Net's six decoder
+                 blocks at the published widths, four nets at S = 3 (a 30 s
+                 song): against float64 within its rounding bound, the same
+                 bits twice, and the device time of the four nets' launches
+                 beside the card's bound, the plain version (the four phases
+                 as cuDNN convs) and the chain it replaces (cat, cuDNN's
+                 ConvTranspose2d, crop, ReLU, BatchNorm).
 4. main_path  -- BeatTracker.track_signal on a 30 s click track on the card and on
                  the CPU with the same seeded weights; launch counters; the DBN
                  backend (its forward pass on the card), against the native
@@ -181,6 +188,8 @@ KERNEL_SOURCES = {
     "conv": ("zeronotesamba_torch/csrc/conv_fprop.cu", "none: the encoders' convs, which the JAX package leaves to XLA"),
     "wgrad": ("zeronotesamba_torch/csrc/conv_wgrad.cu",
               "none: the encoders' convs' weight gradients, which the JAX package leaves to XLA"),
+    "deconv": ("zeronotesamba_torch/csrc/deconv_fprop.cu",
+               "none: Spleeter's decoder blocks (the JAX package has no Spleeter)"),
 }
 # Golden activations whose device (float32) beats must equal the float64
 # decode's; on the others (noise, near-silence, short, seeded-weight pulses)
@@ -610,6 +619,98 @@ def _conv_wgrad(stats: dict) -> None:
         emit("conv", part="wgrad_sum", shape=shape, **tot, fp32_peak_share=tot["bound_ms"] / tot["ms"])
     # One stream's eight weight gradients at the fine-tune's shape for the kernels summary.
     stats["wgrad"].update(totals["finetune"], bound_by="operations")
+
+
+DECONV_SEGMENTS = 3  # a 30 s song's segments at 44.1 kHz, each net's batch
+DECONV_CALLS = 5  # calls of the four nets' launches a timed graph holds
+
+
+def _deconv_reference(skip, u, deconv, bn) -> tuple:
+    """A decoder block in float64 from the same float32 inputs, and a bound
+    on the kernel's error: an output's sum holds at most 9 cin products and
+    the bias in float32 FFMA chains and their in-order adds, each rounding at
+    most u times the float64 sum of |terms| so far; then the folded
+    BatchNorm's few roundings, relative to its output."""
+    x = (u if skip is None else torch.cat([skip, u], 1)).double()
+    w, b = deconv.weight.double(), deconv.bias.double()
+    z = F.conv_transpose2d(x, w, b, stride=2, padding=1)[..., :-1, :-1]
+    za = F.conv_transpose2d(x.abs(), w.abs(), b.abs(), stride=2, padding=1)[..., :-1, :-1]
+    scale = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
+    shift = bn.bias.double() - bn.running_mean.double() * scale
+    v = lambda t: t.view(1, -1, 1, 1)  # noqa: E731
+    ref = F.relu(z) * v(scale) + v(shift)
+    bound = (9 * x.shape[1] + 10) * CONV_ROUNDING * za * v(scale.abs()) + 8 * CONV_ROUNDING * (
+        F.relu(z) * v(scale.abs()) + v(shift.abs()))
+    return ref, bound
+
+
+def phase_deconv(stats: dict) -> None:
+    """Spleeter's decoder kernel at each decoder block of the four nets at
+    the published widths and S = DECONV_SEGMENTS, seeded weights and
+    Gaussian inputs: each net's output against float64 within the rounding
+    bound of its sums (``_deconv_reference``), the same bits twice, and the
+    device time of the four nets' launches (CUDA events around a graph of
+    DECONV_CALLS calls) beside the card's bound, the plain version
+    (``block_plain``: the four phases as cuDNN convs, the epilogue in
+    PyTorch) and the chain the kernel replaces (``torch.cat``, cuDNN's
+    ConvTranspose2d with the crop, ReLU, BatchNorm; TF32 off, cuDNN's
+    heuristic pick, as the port ran it)."""
+    from zeronotesamba_torch.models.spleeter import Spleeter, up
+    from zeronotesamba_torch.ops.cuda import deconv_kernel as dk
+
+    with torch.device("cuda"):
+        model = Spleeter()
+    model.reset_parameters(torch.Generator().manual_seed(23))
+    model.eval()
+    nets = list(model.nets.values())
+    f, cfg = model.cfg.filters, model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    with torch.inference_mode():
+        for k in range(6):
+            h, w = cfg.T >> (6 - k), cfg.F >> (6 - k)
+            c_skip, c_u = (0, f[-1]) if k == 0 else (f[-1 - k], f[-1 - k])
+            cin, cout = c_skip + c_u, nets[0].dec[k].out_channels
+            blocks = []
+            for net in nets:
+                skip = torch.randn(DECONV_SEGMENTS, c_skip, h, w, device="cuda", generator=gen) if c_skip else None
+                u = torch.randn(DECONV_SEGMENTS, c_u, h, w, device="cuda", generator=gen)
+                blocks.append((skip, u, net.dec[k], net.dec_bn[k]))
+            ratio = err = 0.0
+            for args in blocks:
+                y, y2 = dk.decoder_block(*args), dk.decoder_block(*args)
+                ref, bnd = _deconv_reference(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(y, y2), f"decoder block {k + 1}: two runs differ")
+                ratio = max(ratio, ((y.double() - ref).abs() / bnd).max().item())
+                err = max(err, (y.double() - ref).abs().max().item())
+                del y, y2, ref, bnd
+            check(ratio <= 1.0, f"decoder block {k + 1}: error {ratio} of the float32 rounding bound")
+
+            def chain(skip, u, deconv, bn):
+                return bn(F.relu(up(deconv, u if skip is None else torch.cat([skip, u], 1))))
+
+            times = {name: device_ms(lambda fn=fn: [fn(*args) for args in blocks], n=DECONV_CALLS, reps=3)
+                     for name, fn in (("ms", dk.decoder_block), ("plain_ms", dk.block_plain),
+                                      ("library_ms", chain))}
+            flops = 2.0 * len(nets) * DECONV_SEGMENTS * h * w * cin * cout * 25
+            nbytes = 4.0 * len(nets) * (DECONV_SEGMENTS * (cin * h * w + cout * 4 * h * w) + cin * cout * 25)
+            bound_ms, bound_by = bound(nbytes, flops)
+            layout = dk.layout_for(blocks[0][0], blocks[0][1], cout)
+            emit("deconv", block=k + 1, nets=len(nets), segments=DECONV_SEGMENTS, c_skip=c_skip, c_u=c_u, h=h, w=w,
+                 cout=cout, layout=layout._asdict(), smem_bytes=dk.smem_bytes(layout), **times, bound_ms=bound_ms,
+                 bound_by=bound_by, fp32_peak_share=bound_ms / times["ms"], beats_library=times["ms"] < times[
+                     "library_ms"], rounding_bound_share=ratio, max_abs_err_f64=err, bitwise_repeat=True)
+            for key in total:
+                total[key] += bound_ms if key == "bound_ms" else times[key]
+            stats["deconv"]["max_abs_err"] = max(stats["deconv"]["max_abs_err"], err)
+            del blocks
+            torch.cuda.empty_cache()
+    emit("deconv", part="sum", nets=len(nets), segments=DECONV_SEGMENTS, **total,
+         fp32_peak_share=total["bound_ms"] / total["ms"])
+    stats["deconv"].update(total, bound_by="operations")
+    del model
+    torch.cuda.empty_cache()
 
 
 def _beats_match(a: np.ndarray, b: np.ndarray, what: str) -> None:
@@ -1704,7 +1805,7 @@ def _separator_serving(stats: dict) -> None:
                   track_dir_seconds=track_dir_s))
 
 
-def _separator_spleeter() -> None:
+def _separator_spleeter(stats: dict) -> None:
     """The Spleeter serving path, untimed (the spleeter-etl-30s cell times
     it): a 30 s click track at 44.1 kHz through
     track_signal(separation="spleeter") at the published widths (the
@@ -1729,7 +1830,8 @@ def _separator_spleeter() -> None:
     before = profiling.totals()
     res = tracker.track_signal(sig, 44100, separation="spleeter", decoder="dbn")
     counted = _counted("spleeter.", before)
-    check(counted == {"segments": 3, "unet_launch": 4}, f"spleeter path counters {counted}")
+    check(counted == {"segments": 3, "unet_launch": 4, "deconv_launch": 24}, f"spleeter path counters {counted}")
+    stats["deconv"]["launches"] = {"spleeter_song": counted["deconv_launch"]}
     model = _spleeter_model(None, "cuda")
     last = model.last
     w = {k: torch.as_tensor(v, device="cuda")
@@ -1748,7 +1850,7 @@ def _separator_spleeter() -> None:
     first = {k: v.clone() for k, v in last.items()}
     model.separate(sig, 44100)
     replay_gap = {k: float((model.last[k] - first[k]).abs().max() / first[k].abs().max()) for k in first}
-    # cuDNN's data-gradient sums may add in another order; the STFT's do not.
+    # cuDNN's encoder convs may add in another order; the STFT's and the decoder kernel's do not.
     check(replay_gap["magnitude"] == 0.0 and replay_gap["masks"] <= limits["mask_gap"]
           and replay_gap["streams"] <= limits["stream_gap"],
           f"spleeter graph replay against its eager call {replay_gap}")
@@ -1763,7 +1865,7 @@ def phase_separator(stats: dict) -> None:
     _separator_quality()
     _separator_train()
     _separator_serving(stats)
-    _separator_spleeter()
+    _separator_spleeter(stats)
     emit("separator", part="done", seconds=time.perf_counter() - t0)
 
 
@@ -2534,6 +2636,7 @@ def main() -> None:
     stats = {k: {"max_abs_err": 0.0} for k in KERNEL_SOURCES}
     phase_kernels(stats, args.trace)
     phase_conv(stats)
+    phase_deconv(stats)
     pulse = phase_main_path(stats)
     phase_decode(stats, pulse)
     ds = phase_train(stats)

@@ -19,7 +19,11 @@ goes to (anchor, positive) at 16 kHz, as every other backend hands them on:
    - six 5x5 stride-2 ``ConvTranspose2d`` (the full output cropped by 1
      before and 2 after, the adjoint of that padding): u1 =
      BN(ReLU(deconv(c6))), then u_k = BN(ReLU(deconv([c_{7-k}, u_{k-1}])));
-     dropout 0.5 after the first three (inactive here);
+     dropout 0.5 after the first three (inactive here). On a card in eval
+     with grad off, each such block is one launch of the port's own float32
+     kernel (``ops/cuda/deconv_kernel.decoder_block``, csrc/deconv_fprop.cu:
+     the concat, transposed conv, crop, ReLU and BatchNorm together);
+     otherwise the modules run as written;
    - out = sigmoid(Conv2d(1 -> 2, 4x4, dilation 2, padding 3)(u6)) * |X|.
 3. Ratio masks M_i = (out_i^2 + 1e-10 / 4) / (sum_j out_j^2 + 1e-10), cut
    back to the STFT's frames and extended with zeros from bin ``F`` to 2,049
@@ -34,16 +38,20 @@ once. The stages run on the song zero-padded to its segments' grid, which
 changes none of its own samples (``Spleeter._stages``), so every song of S
 segments has the same shapes: on a card each stage is a CUDA graph,
 captured at the first call of an S and replayed after, those of the last
-``GRAPHS_KEPT`` counts kept. A net's FFT-tiled and strided convs are
-hundreds of small kernels, which the host would otherwise launch one by
-one. ``Spleeter.last`` holds that call's magnitude, masks and streams on
+``GRAPHS_KEPT`` counts kept. A net's strided convs, BatchNorms and
+decoder blocks are dozens of kernels, which the host would otherwise launch
+one by one. ``Spleeter.last`` holds that call's magnitude, masks and streams on
 the device (no copy) for a caller that inspects them; on a card they are
 the graphs' own tensors, which the next call of that S overwrites.
 Float32: on a card it turns TF32 off (``device.disable_tf32``). Spans,
 around each stage or its replay: ``spleeter.stft`` (and, eagerly, the
 resample of another rate to 44.1 kHz), ``spleeter.unet``, ``spleeter.masks``
 (masks and iSTFT), ``spleeter.resample``; counters ``spleeter.segments`` (S
-a song) and ``spleeter.unet_launch`` (a net's forward: 4 a song).
+a song), ``spleeter.unet_launch`` (a net's forward: 4 a song) and
+``spleeter.deconv_launch`` (the decoder kernel's launches a song: 24 on a
+card, one a net and block, 0 on the CPU). A graph replay runs no Python, so
+the launches are counted when the stages run eagerly and kept with that
+segment count's graphs.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import torch.nn.functional as F
 
 from zeronotesamba_torch.device import disable_tf32
 from zeronotesamba_torch.ops import stft44
+from zeronotesamba_torch.ops.cuda import deconv_kernel
 from zeronotesamba_torch.ops.resample import resample_polyphase_device, resampled_length
 from zeronotesamba_torch.utils import profiling
 
@@ -117,13 +126,24 @@ class UNet(nn.Module):
             if k < len(self.enc) - 1:
                 h = F.leaky_relu(bn(skips[-1]), self.leaky_slope)
         u = skips[-1]
+        fused = takes_kernel(x, self.training)
         for k, (deconv, bn) in enumerate(zip(self.dec, self.dec_bn)):
+            if fused:
+                u = deconv_kernel.decoder_block(skips[-1 - k] if k else None, u, deconv, bn)
+                continue
             if k:
                 u = torch.cat([skips[-1 - k], u], dim=1)
             u = bn(F.relu(up(deconv, u)))
             if k < 3:
                 u = self.drop(u)
         return torch.sigmoid(self.head(u)) * x
+
+
+def takes_kernel(x, training: bool) -> bool:
+    """Whether ``UNet.forward`` runs its decoder blocks as the port's kernel:
+    on a card, in float32, with grad off and the net in eval (the kernel has
+    no backward, and dropout and BatchNorm act as in eval)."""
+    return x.is_cuda and x.dtype == torch.float32 and not torch.is_grad_enabled() and not training
 
 
 def down(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -216,39 +236,43 @@ class Spleeter(nn.Module):
                 ("spleeter.resample", lambda t: {"streams": resample_polyphase_device(t["stems"], SAMPLE_RATE,
                                                                                       OUT_RATE)})]
 
-    def _run(self, song: torch.Tensor) -> dict:
+    def _run(self, song: torch.Tensor) -> Tuple[dict, int]:
         """The stages on the song (1, L) at 44.1 kHz. On a card, the first
         call of a segment count S runs them and then captures each as a CUDA
         graph on their own tensors (the padded song and its length kept as
         the graphs' input); every later call of that S, whatever its length,
         copies its song in and replays them. The graphs of the last
-        ``GRAPHS_KEPT`` segment counts used are kept. On the CPU they run."""
+        ``GRAPHS_KEPT`` segment counts used are kept. On the CPU they run.
+        Returns the tensors and the decoder kernel's launches a call (those
+        of the eager run, kept with the graphs)."""
         length = song.shape[-1]
         segments = self.segments(length)
         t = {"song": F.pad(song, (0, segments * self.cfg.T * stft44.HOP - stft44.FRAME - length)),
              "length": torch.full((), length, device=song.device)}
         if segments in self._graphs:
             self._graphs.move_to_end(segments)
-            graphs, static = self._graphs[segments]
+            graphs, static, launches = self._graphs[segments]
             static["song"].copy_(t["song"])
             static["length"].copy_(t["length"])
             for name, graph in graphs:
                 with profiling.span(name):
                     graph.replay()
-            return static
+            return static, launches
+        before = profiling.totals("deconv_launch.").get("fprop", 0)
         for name, fn in self._stages():
             with profiling.span(name):
                 t.update(fn(t))
+        launches = profiling.totals("deconv_launch.").get("fprop", 0) - before
         if song.device.type == "cuda":
             graphs, static = [], {"song": t["song"].clone(), "length": t["length"].clone()}
             for name, fn in self._stages():
                 graphs.append((name, torch.cuda.CUDAGraph()))
                 with torch.cuda.graph(graphs[-1][1]):
                     static.update(fn(static))
-            self._graphs[segments] = graphs, static
+            self._graphs[segments] = graphs, static, launches
             if len(self._graphs) > GRAPHS_KEPT:
                 self._graphs.popitem(last=False)
-        return t
+        return t, launches
 
     def separate(self, signal: np.ndarray, sr: int = SAMPLE_RATE) -> Tuple[np.ndarray, np.ndarray]:
         """A mono song at ``sr`` -> (anchor, positive) float32 at 16 kHz."""
@@ -260,9 +284,10 @@ class Spleeter(nn.Module):
             if sr != SAMPLE_RATE:
                 with profiling.span("spleeter.stft"):
                     song = resample_polyphase_device(song, sr, SAMPLE_RATE)
-            t = self._run(song)
+            t, launches = self._run(song)
             profiling.count("spleeter.segments", t["magnitude"].shape[0])
             profiling.count("spleeter.unet_launch", len(self.nets))
+            profiling.count("spleeter.deconv_launch", launches)
             streams = t["streams"][:, :resampled_length(song.shape[-1], SAMPLE_RATE, OUT_RATE)]
             self.last = {"magnitude": t["magnitude"], "masks": t["masks"], "streams": streams}
             out = profiling.to_host(streams)

@@ -25,7 +25,7 @@ from zeronotesamba_torch.utils import hostcache
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("vqt_cascade", "vqt_octave", "dbn_viterbi", "dbn_viterbi_f64", "conv_fprop", "conv_wgrad")
+SOURCES = ("vqt_cascade", "vqt_octave", "dbn_viterbi", "dbn_viterbi_f64", "conv_fprop", "conv_wgrad", "deconv_fprop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
